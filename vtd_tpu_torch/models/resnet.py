@@ -1,0 +1,76 @@
+"""ResNet-50 backbone returning the C2..C5 taps (port of
+``vtd_tpu/models/resnet.py``).
+
+Module names follow torchvision's ``resnet50`` (``conv1``, ``bn1``,
+``layerN.i.{conv1..3,bn1..3,downsample}``), the layout the reference's
+torch importer maps from, so such state dicts load directly. NCHW.
+The reference's stem is a space-to-depth rewrite of the plain 7x7/2
+convolution with padding 3 on the same ``conv1`` kernel; here it is that
+plain convolution. Every padding is explicit, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride here) -> 1x1, identity or projection shortcut."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        out_ch = 4 * features
+        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.conv2 = nn.Conv2d(
+            features, features, 3, stride=stride, padding=1, bias=False
+        )
+        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.downsample = None
+        if in_ch != out_ch or stride != 1:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+                nn.BatchNorm2d(out_ch, eps=BN_EPS),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet50(nn.Module):
+    """NCHW image -> (C2, C3, C4, C5) at strides 4/8/16/32."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        in_ch = 64
+        for stage, (n_blocks, width) in enumerate(
+            zip(stage_sizes, (64, 128, 256, 512))
+        ):
+            blocks = []
+            for block in range(n_blocks):
+                stride = 2 if (stage > 0 and block == 0) else 1
+                blocks.append(Bottleneck(in_ch, width, stride))
+                in_ch = 4 * width
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        taps = []
+        for name in ("layer1", "layer2", "layer3", "layer4"):
+            x = getattr(self, name)(x)
+            taps.append(x)
+        return tuple(taps)

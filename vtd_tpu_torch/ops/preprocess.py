@@ -1,0 +1,73 @@
+"""Frame preprocessing on the device (port of ``vtd_tpu/ops/preprocess.py``).
+
+uint8 frames in, normalised detector input out; I420 frames are turned
+back into BGR first. Layouts follow the reference: NHWC at both ends.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# torchvision Normalize constants
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def preprocess_frames(
+    frames: torch.Tensor,
+    out_size: int = 640,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """uint8 [B, H, W, 3] BGR -> normalised RGB [B, S, S, 3] in ``dtype``.
+
+    Bilinear resize with antialiasing and half-pixel centres (what
+    ``jax.image.resize(method="bilinear", antialias=True)`` computes),
+    /255, ImageNet normalisation. The result is an NHWC view of NCHW
+    memory, so ``.permute(0, 3, 1, 2)`` hands the model a contiguous
+    NCHW tensor without a copy.
+    """
+    x = frames.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+    x = x.flip(1)  # BGR -> RGB
+    x = F.interpolate(
+        x, size=(out_size, out_size), mode="bilinear",
+        align_corners=False, antialias=True,
+    )
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    x = (x - mean[:, None, None]) / std[:, None, None]
+    return x.to(dtype).permute(0, 2, 3, 1)
+
+
+def yuv420_to_bgr(packed: torch.Tensor) -> torch.Tensor:
+    """I420-packed [B, H*3/2, W] uint8 -> BGR [B, H, W, 3] uint8.
+
+    Video-range BT.601, as cv2's COLOR_YUV2BGR_I420, with float32
+    constants and round half to even. To give the reference's bytes
+    exactly, the arithmetic rounds to float32 where the reference's
+    compiled code does: it fuses each multiply-add into one FMA (one
+    rounding), which float64 arithmetic followed by one rounding to
+    float32 reproduces exactly at these magnitudes.
+    """
+    b, h15, w = packed.shape
+    h = (h15 * 2) // 3
+    f32, f64 = torch.float32, torch.float64
+
+    def c(x):  # a float32 constant, held exactly in float64
+        return float(torch.tensor(x, dtype=f32))
+
+    def r32(x):
+        return x.to(f32).to(f64)
+
+    def up2(x):
+        return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+    y16 = packed[:, :h, :].to(f64) - 16.0
+    u = up2(packed[:, h:h + h // 4, :].reshape(b, h // 2, w // 2)).to(f64)
+    v = up2(packed[:, h + h // 4:, :].reshape(b, h // 2, w // 2)).to(f64)
+    u, v = u - 128.0, v - 128.0
+    yc = r32(c(1.164) * y16)
+    r = r32(yc + c(1.596) * v)
+    g = r32(r32(c(1.164) * y16 - r32(c(0.391) * u)) - c(0.813) * v)
+    bl = r32(yc + c(2.018) * u)
+    bgr = torch.stack([bl, g, r], dim=-1).to(f32)
+    return torch.clamp(torch.round(bgr), 0, 255).to(torch.uint8)
