@@ -3,17 +3,28 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run on any error:
-  1. build every CUDA kernel from vtd_tpu_torch/csrc with nvcc (sm_90a);
-     print the card's name and power limit;
-  2. hold each kernel against its plain PyTorch version on the card,
-     label for label, and time both per launch;
-  3. drive the CRNN video path through ``VideoTextPipeline`` at full width
-     (ResNet50-FPN DBNet at 640x640, CRNN with 2 BiLSTM layers of 256,
-     seeded random weights) over a few pipelined batches, count kernel
-     launches, check the results, and check the card's postprocess
-     against the CPU's on the same probability maps;
-  4. print one JSON line describing every kernel, then the device line.
+Every CUDA kernel of vtd_tpu_torch/csrc is built first with nvcc (sm_90a,
+one compiler process per source, all at once) and the card's name and
+power limit are printed. Then the phases, each of which fails the run on
+any error:
+  segmented  hold ``segmented_cc_round`` against its plain PyTorch
+             version on the card, label for label, and time both;
+  sweeps     the same for ``neighbor_min_sweeps`` (iters 1/4/8, noise,
+             staircase, banners, empty, full, border, a 50x70 map);
+  dense      the dense labelling path, ``connected_components(
+             backend="pallas")``, on the card against the CPU, with its
+             4 kernel launches counted;
+  crnn       drive the CRNN video path through ``VideoTextPipeline`` at
+             full width (ResNet50-FPN DBNet at 640x640, CRNN with 2 BiLSTM
+             layers of 256, seeded random weights) over a few pipelined
+             batches, count kernel launches, check the results, and check
+             the card's postprocess against the CPU's on the same maps;
+  trocr      drive the TrOCR engine through ``VideoTextPipeline`` at full
+             width (default TrOCRConfig: 384x384, encoder 768x12, decoder
+             1024x12, 50 steps, bf16), check the model's numerics, count
+             crops recognised and kernel launches, print stage times.
+Last come one JSON line describing every kernel and the device line.
+``--phases a,b`` runs a subset while working on one phase.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
 nothing of JAX.
@@ -26,7 +37,8 @@ import sys
 import time
 
 B, MAP = 16, 320  # main-path labelling shape: 16 frames, 640 map at stride 2
-N_BATCHES = 4
+N_BATCHES = 4  # CRNN path
+N_TROCR_BATCHES = 3  # each may carry up to 64 chunks of 50 decode steps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # non-tensor float32 peak, the table's nearest rate
 
@@ -67,13 +79,14 @@ def banner(angle: float, length: int = 280, width: int = 6):
     return (np.abs(u) <= length / 2) & (np.abs(v) <= width / 2)
 
 
-def kernel_phase(torch, np, results):
-    from vtd_tpu_torch.ops.cc_kernels import (
-        segmented_cc_round, segmented_cc_round_plain,
-    )
-    from vtd_tpu_torch.ops.db_postprocess import connected_components
+def record_launches(results, kernel: str, key: str, count: int) -> None:
+    """A kernel's launch count on one path, into its entry of the kernels
+    line (``launches`` is the count on the kernel's own main path)."""
+    results.setdefault(kernel, {"name": kernel})[key] = count
 
-    rng = np.random.default_rng(0)
+
+def map_cases(np, rng, with_extremes: bool = False):
+    """Named [B, MAP, MAP] bool map sets the kernels are checked on."""
     cases = [(f"noise{p}", rng.random((B, MAP, MAP)) < p)
              for p in (0.3, 0.5, 0.7)]
     stairs = np.zeros((MAP, MAP), bool)
@@ -83,6 +96,23 @@ def kernel_phase(torch, np, results):
     cases.append(("banner-45", np.broadcast_to(banner(-45), (B, MAP, MAP))))
     cases.append(("banner30", np.broadcast_to(banner(30), (B, MAP, MAP))))
     cases.append(("empty", np.zeros((B, MAP, MAP), bool)))
+    if with_extremes:
+        cases.append(("full", np.ones((B, MAP, MAP), bool)))
+        frame = np.zeros((MAP, MAP), bool)
+        frame[0, :] = frame[-1, :] = frame[:, 0] = frame[:, -1] = True
+        frame[:, MAP // 2] = True  # one component touching every border
+        cases.append(("border", np.broadcast_to(frame, (B, MAP, MAP))))
+    return cases
+
+
+def segmented_phase(torch, np, results):
+    from vtd_tpu_torch.ops.cc_kernels import (
+        segmented_cc_round, segmented_cc_round_plain,
+    )
+    from vtd_tpu_torch.ops.db_postprocess import connected_components
+
+    rng = np.random.default_rng(0)
+    cases = map_cases(np, rng)
 
     ident = np.arange(MAP * MAP, dtype=np.int32).reshape(1, MAP, MAP)
     perm = rng.permutation(MAP * MAP).astype(np.int32).reshape(1, MAP, MAP)
@@ -165,6 +195,119 @@ def kernel_phase(torch, np, results):
     }
 
 
+def sweeps_phase(torch, np, results):
+    """neighbor_min_sweeps against its plain version on the card, label
+    for label, then time per launch at the dense path's shape."""
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, neighbor_min_sweeps_plain,
+    )
+
+    rng = np.random.default_rng(1)
+    cases = map_cases(np, rng, with_extremes=True)
+    # a size that is no multiple of the kernel's 32x32 tile
+    odd = rng.random((5, 50, 70)) < 0.5
+    odd[3] = True
+    odd[4] = False
+    odd[4, 0, :] = odd[4, -1, :] = odd[4, :, 0] = odd[4, :, -1] = True
+    cases.append(("50x70", odd))
+    max_diff = 0
+    n_checks = 0
+    for name, m in cases:
+        fg = torch.from_numpy(np.ascontiguousarray(m)).cuda()
+        b, h, w = fg.shape
+        ident = np.broadcast_to(
+            np.arange(h * w, dtype=np.int32).reshape(1, h, w), (b, h, w))
+        perm = np.broadcast_to(
+            rng.permutation(h * w).astype(np.int32).reshape(1, h, w),
+            (b, h, w))
+        for lab in (ident, perm):
+            lbl = torch.from_numpy(np.ascontiguousarray(lab)).cuda()
+            for iters in (1, 4, 8):
+                got = neighbor_min_sweeps(fg, lbl, iters)
+                want = neighbor_min_sweeps_plain(fg, lbl, iters)
+                torch.cuda.synchronize()
+                diff = int((got != want).sum())
+                max_diff = max(max_diff, int((got - want).abs().max()))
+                n_checks += 1
+                if diff:
+                    raise AssertionError(
+                        f"neighbor_min_sweeps differs from its plain version "
+                        f"on {name} (iters={iters}): {diff} labels"
+                    )
+    print(f"kernel check: neighbor_min_sweeps equals its plain version on "
+          f"{len(cases)} map sets x 2 label seeds x iters 1/4/8 "
+          f"({n_checks} comparisons); max label diff {max_diff}")
+
+    iters = 8
+    fg = torch.from_numpy(cases[1][1]).cuda()
+    lbl = torch.arange(MAP * MAP, dtype=torch.int32, device="cuda").reshape(
+        1, MAP, MAP).expand(B, MAP, MAP).contiguous()
+    plain1 = time_ms(lambda: neighbor_min_sweeps_plain(fg, lbl, iters))
+    kern1 = time_ms(lambda: neighbor_min_sweeps(fg, lbl, iters), reps=100)
+    kern2 = time_ms(lambda: neighbor_min_sweeps(fg, lbl, iters), reps=100)
+    plain2 = time_ms(lambda: neighbor_min_sweeps_plain(fg, lbl, iters))
+    kernel_ms = (kern1 + kern2) / 2
+    plain_ms = (plain1 + plain2) / 2
+    # the function reads the mask (1 B) and labels (4 B) and writes labels
+    # (4 B) once per cell whatever iters is; 9 mins per cell per sweep
+    cells = B * MAP * MAP
+    bound_bytes_ms = cells * 9 / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = cells * 9 * iters / FP32_OPS_PER_S * 1e3
+    print(f"neighbor_min_sweeps per launch [{B}x{MAP}x{MAP}], iters={iters}: "
+          f"kernel {kern1:.4f}/{kern2:.4f} ms; plain {plain1:.4f}/"
+          f"{plain2:.4f} ms; bound "
+          f"{max(bound_bytes_ms, bound_ops_ms) * 1e3:.2f} us")
+    results["neighbor_min_sweeps"] = {
+        "name": "neighbor_min_sweeps",
+        "route": "cuda",
+        "source": "vtd_tpu_torch/csrc/neighbor_min_sweeps.cu",
+        "replaces": "vtd_tpu/ops/pallas_kernels.py:55",
+        "max_abs_err": max_diff,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def dense_phase(torch, np, results):
+    """The dense labelling path, the only path of neighbor_min_sweeps:
+    ``connected_components(backend="pallas")`` on the card against the same
+    call on the CPU, with its launches counted."""
+    from vtd_tpu_torch.ops.cc_kernels import neighbor_min_sweeps
+    from vtd_tpu_torch.ops.db_postprocess import connected_components
+
+    rng = np.random.default_rng(2)
+    cases = map_cases(np, rng, with_extremes=True)
+    maps = np.stack([cases[i % len(cases)][1][i] for i in range(B)])
+    fg = torch.from_numpy(maps).cuda()
+    neighbor_min_sweeps.launches = 0
+    got = connected_components(fg, backend="pallas")
+    torch.cuda.synchronize()
+    launches = neighbor_min_sweeps.launches
+    want = connected_components(fg.cpu(), backend="pallas")
+    if got.shape != (B, MAP * MAP) or got.dtype != torch.int32:
+        raise AssertionError(f"dense labels malformed: {got.shape} {got.dtype}")
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(
+            "connected_components(backend='pallas') on the card differs "
+            "from the CPU's"
+        )
+    if launches != 4:
+        raise AssertionError(
+            f"neighbor_min_sweeps launched {launches} times on the dense "
+            f"path; jump_rounds=4 needs 4"
+        )
+    record_launches(results, "neighbor_min_sweeps", "launches", launches)
+    ms = time_ms(lambda: connected_components(fg, backend="pallas"))
+    scan_ms = time_ms(lambda: connected_components(fg))
+    print(f"dense path: connected_components(backend='pallas') on "
+          f"[{B}x{MAP}x{MAP}] equals the CPU's label for label, {launches} "
+          f"kernel launches; {ms:.4f} ms per call (scan backend on the same "
+          f"maps {scan_ms:.4f} ms)")
+
+
 def make_batch(np, k: int):
     """16 I420 640x360 frames: dark bars on a light background."""
     h, w = 360, 640
@@ -219,41 +362,9 @@ def stage_times(torch, pipe, frames, prob, card):
           + f" ({card})")
 
 
-def pipeline_phase(torch, np, card, results):
-    from vtd_tpu_torch.ops.cc_kernels import segmented_cc_round
-    from vtd_tpu_torch.ops.db_postprocess import db_postprocess
-    from vtd_tpu_torch.runtime import VideoTextPipeline
-
-    pipe = VideoTextPipeline(
-        device="cuda", use_transformer_ocr=False, batch_size=B, max_dets=64,
-        detector_input_size=640, transfer_format="yuv420", max_box_frac=1.0,
-    )
-    valid = np.ones(B, bool)
-    batches = [make_batch(np, k) for k in range(N_BATCHES)]
-    pipe.process_batch(batches[0], valid)  # warm-up: cuDNN plans, build
-    torch.cuda.synchronize()
-
-    segmented_cc_round.launches = 0
-    t0 = time.perf_counter()
-    handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
-    outs = []
-    for k in range(N_BATCHES):
-        nxt = (
-            pipe.dispatch_batch(batches[k + 1], valid_frames=valid)
-            if k + 1 < N_BATCHES else None
-        )
-        outs.append(pipe.process_batch(batches[k], valid, handles=handles))
-        handles = nxt
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = segmented_cc_round.launches
-    if launches < 3 * N_BATCHES:
-        raise AssertionError(
-            f"segmented_cc_round launched {launches} times over "
-            f"{N_BATCHES} batches; the main path needs >= 3 per batch"
-        )
-    results["segmented_cc_round"]["launches"] = launches
-
+def check_results(outs) -> int:
+    """The pipeline's result schema over a list of batches; returns the
+    number of detections."""
     n_det = 0
     for per_frame in outs:
         if len(per_frame) != B:
@@ -272,6 +383,254 @@ def pipeline_phase(torch, np, card, results):
                 if not isinstance(d["text"], str) or len(d["polygon"]) != 4:
                     raise AssertionError(f"malformed detection {d}")
                 n_det += 1
+    return n_det
+
+
+def median_ms(torch, fn, runs: int = 5) -> float:
+    """Median host-clock time of ``fn`` around synchronised work."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def trocr_numerics(torch, pipe):
+    """The model on the card against references: a small float32 model
+    against the CPU on the same seeded weights (logits 1e-3: float32 sums
+    in another order; greedy tokens equal), and the full-width bf16 model
+    against its own weights run in float32 on the card (printed, and held
+    under a loose bound: random weights give logits of order 1)."""
+    import dataclasses
+
+    from vtd_tpu_torch.models.trocr import (
+        TrOCR, greedy_generate, init_weights_, small_config,
+    )
+
+    gen = torch.Generator().manual_seed(11)
+    cfg = small_config()
+    cpu = init_weights_(TrOCR(cfg), gen).eval()
+    gpu = TrOCR(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.cuda()
+    images = torch.rand((4, cfg.image_size, cfg.width, 3), generator=gen) * 2 - 1
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen).int()
+    # full float32 on the card for this comparison: cuDNN would otherwise
+    # run the float32 patch-embedding convolution in TF32
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = cpu(images, tokens)
+            got = gpu(images.cuda(), tokens.cuda()).cpu()
+            err_small = float((got - want).abs().max())
+            toks_c, conf_c = greedy_generate(cpu, images)
+            toks_g, conf_g = greedy_generate(gpu, images.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    if not err_small <= 1e-3:
+        raise AssertionError(f"small TrOCR card vs CPU logits differ by {err_small}")
+    if not torch.equal(toks_c, toks_g.cpu()):
+        raise AssertionError("small TrOCR greedy tokens differ card vs CPU")
+    if not float((conf_c - conf_g.cpu()).abs().max()) <= 1e-3:
+        raise AssertionError("small TrOCR confidences differ card vs CPU")
+
+    tr = pipe.recognizer.transformer
+    full32 = TrOCR(dataclasses.replace(tr.cfg, dtype=torch.float32)).eval()
+    full32.load_state_dict(tr.model.state_dict())
+    full32 = full32.cuda()
+    c = tr.cfg
+    images = (torch.rand((2, c.image_size, c.width, 3), generator=gen) * 2 - 1).cuda()
+    tokens = torch.randint(0, c.vocab_size, (2, 12), generator=gen).int().cuda()
+    with torch.inference_mode():
+        l16 = tr.model(images, tokens)
+        l32 = full32(images, tokens)
+    if not (torch.isfinite(l16).all() and torch.isfinite(l32).all()):
+        raise AssertionError("non-finite full-width TrOCR logits")
+    err_full = float((l16 - l32).abs().max())
+    scale = float(l32.abs().max())
+    if not err_full <= 1.0:
+        raise AssertionError(
+            f"full-width bf16 logits are {err_full} from float32 (max |logit| "
+            f"{scale})")
+    del full32
+    torch.cuda.empty_cache()
+    print(f"TrOCR numerics: small float32 model card vs CPU logits within "
+          f"{err_small:.2e}, greedy tokens equal; full-width bf16 vs float32 "
+          f"on the card max logit diff {err_full:.4f} (max |logit| {scale:.3f})")
+
+
+def trocr_stage_times(torch, pipe, frames, card):
+    """Median wall time of the TrOCR path's stages (host clock around
+    synchronised work), one chunk = ``rec_chunk`` crops."""
+    from vtd_tpu_torch.models.trocr import greedy_decode
+    from vtd_tpu_torch.ops.crop import crop_and_resize_boxes_mm
+    from vtd_tpu_torch.ops.db_postprocess import db_postprocess
+    from vtd_tpu_torch.ops.preprocess import yuv420_to_bgr
+
+    tr = pipe.recognizer.transformer
+    out_h, out_w = pipe.crop_hw
+    chunk = pipe.rec_chunk
+    state = {}
+
+    def detect():
+        state["bgr"] = yuv420_to_bgr(frames)
+        prob = pipe.detector.probability(state["bgr"])
+        state["post"] = db_postprocess(prob, 0.5, max_dets=64, max_box_frac=1.0)
+
+    def crop():
+        post, bgr = state["post"], state["bgr"]
+        scale = torch.tensor([1.0, 360 / 640, 1.0, 360 / 640], device="cuda")
+        crops = crop_and_resize_boxes_mm(
+            bgr, post["boxes"] * scale, post["valid"], out_h=out_h, out_w=out_w)
+        crops = ((crops.flip(-1) - 0.5) / 0.5).to(tr.cfg.dtype)
+        state["crops"] = crops.reshape(-1, out_h, out_w, 3)
+
+    def encode():
+        state["enc_kvs"] = tr.model.encode_kv(state["crops"][:chunk])
+
+    def decode():
+        greedy_decode(tr.model, state["enc_kvs"], 1, 2)
+
+    with torch.inference_mode():
+        parts = [
+            ("detect+postprocess", detect, 5), (f"crop {B * 64} slots to "
+             f"{out_h}x{out_w}", crop, 5),
+            (f"encoder+cross K/V (chunk of {chunk})", encode, 5),
+            (f"decode loop {tr.cfg.max_len} steps (chunk of {chunk})", decode, 3),
+        ]
+        out = [f"{name} {median_ms(torch, fn, runs):.3f}"
+               for name, fn, runs in parts]
+    print("TrOCR path stage ms (median): " + ", ".join(out) + f" ({card})")
+
+
+def trocr_phase(torch, np, card, results):
+    """The TrOCR engine through VideoTextPipeline at full width: the
+    default TrOCRConfig (384x384, patch 16, encoder 768x12, decoder
+    1024x12, 50 steps, bf16) behind a ResNet50-FPN DBNet at 640x640,
+    seeded weights, pipelined batches."""
+    from vtd_tpu_torch.models.trocr import TrOCRConfig
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, segmented_cc_round,
+    )
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    t0 = time.perf_counter()
+    pipe = VideoTextPipeline(
+        device="cuda", use_transformer_ocr=True, batch_size=B, max_dets=64,
+        detector_input_size=640, host_downscale=640,
+        transfer_format="yuv420", max_box_frac=1.0,
+    )
+    tr = pipe.recognizer.transformer
+    if tr.cfg != TrOCRConfig() or pipe.crop_hw != (384, 384):
+        raise AssertionError(f"not the full-width TrOCR config: {tr.cfg}")
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    print(f"TrOCR pipeline built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params / 1e6:.1f} M recogniser parameters, rec_chunk "
+          f"{pipe.rec_chunk}")
+    trocr_numerics(torch, pipe)
+
+    chunks = []
+    generate = tr.generate
+
+    def counting_generate(crops):
+        chunks.append(int(crops.shape[0]))
+        return generate(crops)
+
+    tr.generate = counting_generate
+    valid = np.ones(B, bool)
+    batches = [make_batch(np, k) for k in range(N_TROCR_BATCHES)]
+    pipe.process_batch(batches[0], valid)  # warm-up: cuDNN and cuBLAS plans
+    torch.cuda.synchronize()
+
+    chunks.clear()
+    segmented_cc_round.launches = 0
+    neighbor_min_sweeps.launches = 0
+    t0 = time.perf_counter()
+    handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
+    outs = []
+    for k in range(N_TROCR_BATCHES):
+        nxt = (
+            pipe.dispatch_batch(batches[k + 1], valid_frames=valid)
+            if k + 1 < N_TROCR_BATCHES else None
+        )
+        outs.append(pipe.process_batch(batches[k], valid, handles=handles))
+        handles = nxt
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = segmented_cc_round.launches
+    if launches < 3 * N_TROCR_BATCHES:
+        raise AssertionError(
+            f"segmented_cc_round launched {launches} times over "
+            f"{N_TROCR_BATCHES} TrOCR batches; the path needs >= 3 per batch"
+        )
+    record_launches(results, "segmented_cc_round", "launches_trocr_path",
+                    launches)
+    record_launches(results, "neighbor_min_sweeps", "launches_trocr_path",
+                    neighbor_min_sweeps.launches)
+    n_det = check_results(outs)
+    n_crops = sum(chunks)
+    if n_crops != n_det or n_crops == 0:
+        raise AssertionError(
+            f"{n_crops} crops recognised for {n_det} detections")
+    if max(chunks) > pipe.rec_chunk:
+        raise AssertionError(f"a chunk of {max(chunks)} > rec_chunk")
+    print(f"TrOCR path: {N_TROCR_BATCHES} pipelined batches x {B} frames, "
+          f"{launches} segmented_cc_round launches, {n_det} detections, "
+          f"{n_crops} crops recognised in {len(chunks)} chunks")
+    print(f"TrOCR path throughput {B * N_TROCR_BATCHES / elapsed:.3f} frames/s "
+          f"pipelined, {n_crops / elapsed:.3f} crops/s, "
+          f"{elapsed / len(chunks) * 1e3:.3f} ms per chunk end to end "
+          f"(seeded weights, bf16, {card})")
+    tr.generate = generate
+    trocr_stage_times(torch, pipe, torch.from_numpy(batches[0]).cuda(), card)
+
+
+def pipeline_phase(torch, np, card, results):
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, segmented_cc_round,
+    )
+    from vtd_tpu_torch.ops.db_postprocess import db_postprocess
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    pipe = VideoTextPipeline(
+        device="cuda", use_transformer_ocr=False, batch_size=B, max_dets=64,
+        detector_input_size=640, transfer_format="yuv420", max_box_frac=1.0,
+    )
+    valid = np.ones(B, bool)
+    batches = [make_batch(np, k) for k in range(N_BATCHES)]
+    pipe.process_batch(batches[0], valid)  # warm-up: cuDNN plans, build
+    torch.cuda.synchronize()
+
+    segmented_cc_round.launches = 0
+    neighbor_min_sweeps.launches = 0
+    t0 = time.perf_counter()
+    handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
+    outs = []
+    for k in range(N_BATCHES):
+        nxt = (
+            pipe.dispatch_batch(batches[k + 1], valid_frames=valid)
+            if k + 1 < N_BATCHES else None
+        )
+        outs.append(pipe.process_batch(batches[k], valid, handles=handles))
+        handles = nxt
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = segmented_cc_round.launches
+    if launches < 3 * N_BATCHES:
+        raise AssertionError(
+            f"segmented_cc_round launched {launches} times over "
+            f"{N_BATCHES} batches; the main path needs >= 3 per batch"
+        )
+    # the dense labelling kernel is on neither video path: 0 expected
+    record_launches(results, "segmented_cc_round", "launches", launches)
+    record_launches(results, "neighbor_min_sweeps", "launches_crnn_path",
+                    neighbor_min_sweeps.launches)
+
+    n_det = check_results(outs)
 
     t1 = time.perf_counter()
     pipe.process_batch(batches[1], valid)
@@ -315,7 +674,24 @@ def pipeline_phase(torch, np, card, results):
                   f"{int(v.sum())} valid slots equal, boxes within {err} px")
 
 
-def main() -> int:
+PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated subset of %(default)s, for a short run while "
+             "working on one phase; the default runs them all",
+    )
+    args = parser.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -334,8 +710,18 @@ def main() -> int:
     print(card)
 
     results: dict = {}
-    kernel_phase(torch, np, results)
-    pipeline_phase(torch, np, card, results)
+    run = {
+        "segmented": lambda: segmented_phase(torch, np, results),
+        "sweeps": lambda: sweeps_phase(torch, np, results),
+        "dense": lambda: dense_phase(torch, np, results),
+        "crnn": lambda: pipeline_phase(torch, np, card, results),
+        "trocr": lambda: trocr_phase(torch, np, card, results),
+    }
+    for name in PHASES:
+        if name in phases:
+            t0 = time.perf_counter()
+            run[name]()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -110,10 +110,15 @@ def test_ctc_greedy_decode_matches_reference():
 def test_recognizer_rejects_later_slices():
     from vtd_tpu_torch.runtime import TextRecognizer
 
-    with pytest.raises(NotImplementedError, match="TrOCR"):
-        TextRecognizer(use_transformer=True, device="cpu")
     with pytest.raises(NotImplementedError, match="beam"):
         TextRecognizer(decoder="beam", device="cpu")
+    # the transformer engine is ported: the facade builds it
+    from vtd_tpu_torch.models.trocr import small_config
+
+    rec = TextRecognizer(
+        use_transformer=True, transformer_config=small_config(), device="cpu"
+    )
+    assert rec.use_transformer and rec.transformer is not None
 
 
 def test_recognizer_facade_on_ragged_crops():

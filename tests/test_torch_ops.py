@@ -2,7 +2,8 @@
 
 Tolerances: ``yuv420_to_bgr`` exact; ``preprocess_frames`` within 1e-5
 after normalisation on the shape the main path ships (640x360 -> 640^2);
-crops within 1e-5 (float32 sums in another order).
+crops within 1e-5 (float32 sums in another order); ``iou_matrix`` within
+1e-6, ``nms`` keep masks and ``temporal_dedup`` tracks equal.
 """
 import cv2
 import numpy as np
@@ -74,3 +75,67 @@ def test_crop_and_resize_boxes_mm_matches_reference():
     assert got.shape == (2, 6, 32, 128, 3)
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert not got[~valid].any()
+
+
+def _boxes(seed, k=24):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 80, (k, 2)).astype(np.float32)
+    wh = rng.uniform(5, 40, (k, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], 1)
+    boxes[k // 2:k // 2 + 4] = boxes[:4] + 1.0  # near-duplicates
+    boxes[-1] = [10, 10, 10, 30]  # zero area
+    return boxes, rng.random(k).astype(np.float32), rng.random(k) < 0.8
+
+
+def test_iou_matrix_and_nms_match_reference():
+    import jax.numpy as jnp
+
+    from vtd_tpu.ops.nms import iou_matrix as ref_iou, nms as ref_nms
+    from vtd_tpu_torch.ops.nms import iou_matrix, nms
+
+    for seed in range(3):
+        boxes, scores, valid = _boxes(seed)
+        got = iou_matrix(torch.from_numpy(boxes), torch.from_numpy(boxes[:7]))
+        want = np.asarray(ref_iou(jnp.asarray(boxes), jnp.asarray(boxes[:7])))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+        for thr in (0.3, 0.5):
+            keep = nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                       torch.from_numpy(valid), thr)
+            want = np.asarray(ref_nms(
+                jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
+                thr))
+            np.testing.assert_array_equal(keep.numpy(), want)
+            assert keep.any() and not keep[~torch.from_numpy(valid)].any()
+    none = nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+               torch.zeros(len(boxes), dtype=torch.bool))
+    assert not none.any()
+
+
+def test_temporal_dedup_matches_reference():
+    from vtd_tpu.ops.nms import temporal_dedup as ref_dedup
+    from vtd_tpu_torch.ops.nms import temporal_dedup
+
+    rng = np.random.default_rng(9)
+    words = ["EXIT", "Gate 12", "a", " ", "OPEN"]
+    frames = []
+    for fn in range(0, 40, 3):
+        dets = []
+        for j, word in enumerate(words):
+            if rng.random() < 0.7:
+                x, y = 20 + 60 * j + int(rng.integers(-3, 4)), 30 + 2 * (fn // 9)
+                dets.append({
+                    "bbox": [x, y, x + 50, y + 20], "text": word,
+                    "detection_confidence": float(rng.random()),
+                    "recognition_confidence": float(rng.random()),
+                })
+        if fn == 21:  # the same word far away: a track of its own
+            dets.append({"bbox": [300, 200, 350, 220], "text": "EXIT",
+                         "detection_confidence": 0.9,
+                         "recognition_confidence": 0.8})
+        frames.append({"frame_number": fn, "detections": dets})
+    got, want = temporal_dedup(frames), ref_dedup(frames)
+    assert got == want and len(got) > len(words) - 1
+    assert all(t["text"].strip() for t in got)
+    assert temporal_dedup(frames, iou_threshold=0.99) == ref_dedup(
+        frames, iou_threshold=0.99)
+    assert temporal_dedup([]) == []

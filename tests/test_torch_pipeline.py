@@ -1,15 +1,17 @@
-"""The port's CRNN video path as a whole, against ``vtd_tpu``'s.
+"""The port's video paths as a whole, against ``vtd_tpu``'s.
 
 ``process_video`` runs on a synthetic clip with burned-in text through
-both packages, on the trained demo detector and CRNN (restored with
-``vtd_tpu``'s loader and carried across by ``vtd_tpu_torch.convert``),
-float32 on both sides: transcripts equal, boxes matched at IoU >= 0.95.
-Also: the overflow second pass, the device rule, the slices that raise,
-and that the port never imports JAX.
+both packages, on the trained demo detector with the trained CRNN and
+with the trained TrOCR (restored with ``vtd_tpu``'s loader and carried
+across by ``vtd_tpu_torch.convert``), float32 on both sides: transcripts
+equal, boxes matched at IoU >= 0.95, temporal-dedup tracks equal.
+Also: the overflow second pass, recognition in chunks, the device rule,
+the slices that raise, and that the port never imports JAX.
 """
 import ast
 import asyncio
 import os
+import shutil
 import subprocess
 import sys
 
@@ -50,15 +52,28 @@ def weights(tmp_path_factory):
     """Trained demo weights: reference checkpoint dirs and the port's
     torch-format files converted from them."""
     from vtd_tpu.train.checkpoint import restore_variables
-    from vtd_tpu_torch.convert import crnn_from_jax, dbnet_from_jax
+    from vtd_tpu_torch.convert import (
+        crnn_from_jax, dbnet_from_jax, trocr_from_jax,
+    )
+    from vtd_tpu_torch.models.trocr import load_config
 
     out = tmp_path_factory.mktemp("weights")
     det_dir = os.path.join(REPO, "demo_models2", "dbnet", "best_bf16")
     rec_dir = os.path.join(REPO, "demo_models2", "crnn", "crnn_final")
+    tr_dir = os.path.join(REPO, "models", "text_recognizer_trocr")
     torch.save(dbnet_from_jax(restore_variables(det_dir)), out / "dbnet.pt")
     torch.save(crnn_from_jax(restore_variables(rec_dir)), out / "crnn.pt")
+    # the trained TrOCR with its architecture sidecar beside it
+    shutil.copy(tr_dir + "_config.json", out / "trocr_config.json")
+    torch.save(
+        trocr_from_jax(restore_variables(tr_dir),
+                       load_config(str(out / "trocr_config.json"))),
+        out / "trocr.pt",
+    )
     return {"ref": (det_dir, rec_dir),
-            "port": (str(out / "dbnet.pt"), str(out / "crnn.pt"))}
+            "port": (str(out / "dbnet.pt"), str(out / "crnn.pt")),
+            "ref_trocr": (det_dir, tr_dir),
+            "port_trocr": (str(out / "dbnet.pt"), str(out / "trocr.pt"))}
 
 
 def _reference_pipeline(det_dir, rec_dir, **kw):
@@ -81,7 +96,8 @@ def _reference_pipeline(det_dir, rec_dir, **kw):
     pipe.detector.variables = jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, jnp.float32), pipe.detector.variables
     )
-    pipe.recognizer.crnn = CRNN(dtype=jnp.float32)
+    if pipe.recognizer.crnn is not None:
+        pipe.recognizer.crnn = CRNN(dtype=jnp.float32)
     pipe._detect_crop = pipe._build_detect_crop()
     return pipe
 
@@ -95,15 +111,7 @@ def _iou(a, b):
     return inter / max(union, 1)
 
 
-def test_process_video_matches_reference(clip, weights):
-    from vtd_tpu_torch.runtime import VideoTextPipeline
-
-    ref = _reference_pipeline(*weights["ref"], **SETTINGS)
-    want = asyncio.run(ref.process_video(clip, ""))
-    port = VideoTextPipeline(
-        *weights["port"], device="cpu", **SETTINGS
-    )
-    got = asyncio.run(port.process_video(clip, ""))
+def _assert_same_video_result(got, want):
     assert got["status"] == want["status"] == "success", got.get("error")
     assert got["video_info"] == want["video_info"]
     assert [r["frame_number"] for r in got["results"]] == [
@@ -124,6 +132,112 @@ def test_process_video_matches_reference(clip, weights):
     for key in ("total_frames", "frames_with_text", "total_detections",
                 "unique_texts", "detected_texts"):
         assert got["summary"][key] == want["summary"][key], key
+
+
+def test_process_video_matches_reference(clip, weights):
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    ref = _reference_pipeline(*weights["ref"], **SETTINGS)
+    want = asyncio.run(ref.process_video(clip, ""))
+    port = VideoTextPipeline(
+        *weights["port"], device="cpu", **SETTINGS
+    )
+    got = asyncio.run(port.process_video(clip, ""))
+    _assert_same_video_result(got, want)
+    assert "text_tracks" not in got["summary"]
+
+
+def test_process_video_transformer_matches_reference(clip, weights):
+    """The TrOCR engine end to end on the trained checkpoint
+    (48x192 input, 4+4 layers), with temporal dedup on: transcripts,
+    boxes, summary and text tracks against the reference's."""
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    settings = dict(SETTINGS, use_transformer_ocr=True)
+    ref = _reference_pipeline(*weights["ref_trocr"], **settings)
+    want = asyncio.run(ref.process_video(clip, "", temporal_dedup=True))
+    port = VideoTextPipeline(
+        *weights["port_trocr"], device="cpu", temporal_dedup=True, **settings
+    )
+    assert port.crop_hw == ref.crop_hw == (48, 192)
+    assert port.rec_chunk == ref.rec_chunk == 16
+    got = asyncio.run(port.process_video(clip, ""))
+    _assert_same_video_result(got, want)
+    for dg, dw in zip(
+        (d for r in got["results"] for d in r["detections"]),
+        (d for r in want["results"] for d in r["detections"]),
+    ):
+        assert abs(dg["recognition_confidence"]
+                   - dw["recognition_confidence"]) <= 1e-3
+    tracks_g, tracks_w = (
+        r["summary"]["text_tracks"] for r in (got, want)
+    )
+    assert len(tracks_g) == len(tracks_w) > 0
+    for tg, tw in zip(tracks_g, tracks_w):
+        for key in ("text", "first_frame", "last_frame", "count"):
+            assert tg[key] == tw[key], key
+        assert _iou(tg["bbox"], tw["bbox"]) >= 0.95
+    # per call, the switch overrides the instance's default
+    off = asyncio.run(port.process_video(clip, "", temporal_dedup=False))
+    assert "text_tracks" not in off["summary"]
+
+
+def test_transformer_engine_recognizes_in_chunks(text_image):
+    """rec_chunk bounds the crops per recogniser call and changes no
+    result: chunks of 1, a short last chunk, and one chunk for all."""
+    from vtd_tpu_torch.models.trocr import small_config
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    frames = np.stack([text_image, text_image[::-1].copy()] * 3)[:5]
+    valid = np.ones(5, bool)
+    outs, calls = [], []
+    for chunk in (1, 3, None):
+        pipe = VideoTextPipeline(
+            use_transformer_ocr=True, batch_size=5, max_dets=8,
+            max_box_frac=1.0, detector_input_size=160, device="cpu",
+            rec_chunk=chunk,
+            recognizer_kwargs={"transformer_config": small_config(
+                image_size=32, image_width=64, max_len=6)},
+        )
+        tr = pipe.recognizer.transformer
+        sizes = []
+        generate = tr.generate
+        tr.generate = lambda crops, _g=generate, _s=sizes: (
+            _s.append(crops.shape[0]) or _g(crops))
+        outs.append(pipe.process_batch(frames, valid))
+        calls.append(sizes)
+    n = sum(len(d) for d in outs[0])
+    assert n >= 4, "fixture too sparse to fill more than one chunk"
+    # float32 sums are blocked by batch size: confidences to 1e-5
+    for other in outs[1:]:
+        for dets_a, dets_b in zip(outs[0], other):
+            assert len(dets_a) == len(dets_b)
+            for da, db in zip(dets_a, dets_b):
+                conf_a, conf_b = (dict(d).pop("recognition_confidence")
+                                  for d in (da, db))
+                assert abs(conf_a - conf_b) <= 1e-5
+                assert {k: v for k, v in da.items()
+                        if k != "recognition_confidence"} == {
+                    k: v for k, v in db.items()
+                    if k != "recognition_confidence"}
+    assert calls[0] == [1] * n
+    assert calls[1] == [3] * (n // 3) + ([n % 3] if n % 3 else [])
+    assert calls[2] == [n]  # default chunk: the recogniser's 16
+    for dets in outs[0]:
+        for d in dets:
+            assert set(d) == {"bbox", "text", "detection_confidence",
+                              "recognition_confidence", "polygon"}
+            assert 0.0 <= d["recognition_confidence"] <= 1.0
+    # padding frames produce nothing and reach no recogniser call
+    pad = np.array([True, False, True, False, False])
+    out_p = pipe.process_batch(frames, pad)
+    assert [bool(d) for d in out_p] == [bool(d) and bool(v)
+                                        for d, v in zip(outs[0], pad)]
+    with pytest.raises(ValueError, match="rec_chunk"):
+        VideoTextPipeline(use_transformer_ocr=True, rec_chunk=-1,
+                          detector_input_size=160, device="cpu",
+                          recognizer_kwargs={
+                              "transformer_config": small_config()})
 
 
 def test_rec_budget_overflow_recovers_all_transcripts(text_image):
@@ -208,8 +322,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"use_transformer_ocr": True},
-        {"temporal_dedup": True},
         {"sample_mode": "keyframe"},
         {"parallel_mode": "two_stage"},
         {"mesh": object()},

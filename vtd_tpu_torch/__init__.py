@@ -7,9 +7,13 @@ that decode video or convert colour on the host.
 
 Ported so far: the CRNN video path (I420 -> BGR, resize/normalise, DBNet
 probability branch, DB postprocess, box crop, CRNN + greedy CTC, host
-assembly). The one TPU kernel on that path, ``segmented_cc_round``, is a
-hand-written CUDA kernel (``csrc/segmented_cc.cu``) with a plain PyTorch
-twin (``ops/cc_kernels.py``).
+assembly), the TrOCR engine (``models/trocr.py``,
+``runtime/trocr_runtime.py``, the transformer branch of the pipeline) and
+temporal dedup (``ops/nms.py``). Both TPU kernels of the reference are
+hand-written CUDA kernels with plain PyTorch twins in
+``ops/cc_kernels.py``: ``segmented_cc_round`` (``csrc/segmented_cc.cu``,
+the labelling rounds of the video paths) and ``neighbor_min_sweeps``
+(``csrc/neighbor_min_sweeps.cu``, the dense labelling backends).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

@@ -1,4 +1,4 @@
-"""Connected-components propagation round: CUDA kernel and plain twin.
+"""Connected-components label propagation: CUDA kernels and plain twins.
 
 ``segmented_cc_round`` is the port of the TPU kernel
 ``vtd_tpu/ops/pallas_kernels.py:segmented_cc_round`` (kernel body
@@ -7,6 +7,12 @@
 tensor it runs ``segmented_cc_round_plain``, the same recurrence written
 as the reference's shift-and-min ladders in plain PyTorch. Both give the
 same labels, label for label.
+
+``neighbor_min_sweeps`` is the port of the TPU kernel
+``vtd_tpu/ops/pallas_kernels.py:neighbor_min_sweeps`` (kernel body
+``_sweep_kernel``): ``iters`` Jacobi sweeps of the 8-neighbour minimum.
+CUDA tensors launch ``csrc/neighbor_min_sweeps.cu``; CPU tensors run
+``neighbor_min_sweeps_plain``.
 """
 from __future__ import annotations
 
@@ -104,7 +110,7 @@ def _check(binary: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("binary and labels are on different devices")
 
 
-def _kernel():
+def _round_kernel():
     from .._build import load
 
     fn = load("segmented_cc").vtd_segmented_cc_round
@@ -139,7 +145,7 @@ def segmented_cc_round(
     out = torch.empty_like(labels)
     stream = torch.cuda.current_stream(binary.device).cuda_stream
     with torch.cuda.device(binary.device):
-        err = _kernel()(
+        err = _round_kernel()(
             binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), b, h, w, int(bool(diag)), stream,
         )
@@ -152,3 +158,88 @@ def segmented_cc_round(
 
 # Launches of the CUDA kernel (CPU calls do not count).
 segmented_cc_round.launches = 0
+
+
+def neighbor_min_sweeps_plain(
+    binary: torch.Tensor, labels: torch.Tensor, iters: int = 8
+) -> torch.Tensor:
+    """Plain PyTorch version of the sweeps: binary [B,H,W] bool, labels
+    [B,H,W] int32 -> [B,H,W] int32 (``pallas_kernels.py:44-52``). Every
+    sweep reads the labels the previous sweep left."""
+    lbl = labels
+    for _ in range(iters):
+        m = neighbour_min(torch.where(binary, lbl, BIG))
+        lbl = torch.where(binary, m, lbl)
+    return lbl
+
+
+_SWEEP_TILE = 32  # kTile of csrc/neighbor_min_sweeps.cu
+_SMEM_LIMIT = 232448  # dynamic shared memory one block can have on sm_90
+
+
+def sweep_smem_bytes(iters: int) -> int:
+    """Shared memory one block of the sweeps kernel needs: the tile plus a
+    halo of ``iters`` cells, two int32 label buffers and a byte mask."""
+    return (_SWEEP_TILE + 2 * iters) ** 2 * 9
+
+
+def _sweeps_kernel():
+    from .._build import load
+
+    fn = load("neighbor_min_sweeps").vtd_neighbor_min_sweeps
+    if fn.argtypes is None:  # first use: declare the C signature
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def neighbor_min_sweeps(
+    binary: torch.Tensor, labels: torch.Tensor, iters: int = 8
+) -> torch.Tensor:
+    """``iters`` 8-neighbour minimum sweeps over a batch of maps.
+
+    binary [B,H,W] bool, labels [B,H,W] int32 -> new labels [B,H,W]
+    int32: foreground cells take the minimum label of their foreground
+    3x3 window (self included) ``iters`` times over, background cells
+    keep theirs. CUDA tensors launch the kernel (contiguous inputs
+    required); CPU tensors take the plain twin.
+    """
+    _check(binary, labels)
+    iters = int(iters)
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    if binary.device.type == "cpu":
+        return neighbor_min_sweeps_plain(binary, labels, iters)
+    if binary.device.type != "cuda":
+        raise ValueError(f"unsupported device {binary.device}")
+    if not (binary.is_contiguous() and labels.is_contiguous()):
+        raise ValueError("neighbor_min_sweeps needs contiguous tensors")
+    if sweep_smem_bytes(iters) > _SMEM_LIMIT:
+        raise ValueError(
+            f"iters={iters} needs {sweep_smem_bytes(iters)} B of shared "
+            f"memory per block, over the {_SMEM_LIMIT} B a block can have; "
+            f"split the sweeps over several calls"
+        )
+    b, h, w = binary.shape
+    if b * h * w >= 2 ** 31 or b > 65535 or h > 65535 * _SWEEP_TILE:
+        raise ValueError("batch too large for the sweeps kernel's grid")
+    out = torch.empty_like(labels)
+    stream = torch.cuda.current_stream(binary.device).cuda_stream
+    with torch.cuda.device(binary.device):
+        err = _sweeps_kernel()(
+            binary.data_ptr(), labels.data_ptr(), out.data_ptr(),
+            b, h, w, iters, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"neighbor_min_sweeps launch failed: CUDA error {err}"
+        )
+    with _count_lock:
+        neighbor_min_sweeps.launches += 1
+    return out
+
+
+# Launches of the CUDA kernel (CPU calls do not count).
+neighbor_min_sweeps.launches = 0

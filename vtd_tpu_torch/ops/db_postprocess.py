@@ -9,7 +9,9 @@ image. The JAX function runs once per frame under ``vmap``; here the
 batch dimension is written out, and every tensor carries it first.
 
 Each propagation round of the labelling goes through
-``cc_kernels.segmented_cc_round`` (the CUDA kernel on a CUDA tensor).
+``cc_kernels.segmented_cc_round`` (the CUDA kernel on a CUDA tensor); the
+dense backends of ``connected_components`` go through
+``cc_kernels.neighbor_min_sweeps``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .cc_kernels import BIG, neighbour_min, segmented_cc_round
+from .cc_kernels import (
+    BIG, neighbor_min_sweeps, neighbour_min, segmented_cc_round,
+)
 
 
 def _stable(binary: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
@@ -68,17 +72,55 @@ def connected_components_scan(
     return lbl.reshape(b, hw)
 
 
+_DENSE_BACKENDS = ("pallas", "pallas-auto", "xla")
+
+
 def connected_components(
-    binary: torch.Tensor, exact: bool = False
+    binary: torch.Tensor,
+    dense_iters: int = 8,
+    jump_rounds: int = 4,
+    backend: str = "auto",
+    exact: bool = False,
 ) -> torch.Tensor:
     """[B, H, W] bool -> [B, H*W] int32 labels: each foreground cell holds
     one label shared by its whole component, background cells their own
-    index. The production schedule of the reference's auto/scan backend
-    (``db_postprocess.py:257-269``): 3 unrolled rounds and a repair loop
-    of up to 16 rounds (32 with ``exact``)."""
-    return connected_components_scan(
-        binary, max_rounds=32 if exact else 16
+    index (``db_postprocess.py:238-303``).
+
+    ``backend`` "auto" / "scan": the production schedule, 3 unrolled
+    segmented rounds and a repair loop of up to 16 rounds (32 with
+    ``exact``). The reference's dense backends "pallas", "pallas-auto"
+    and "xla" all name one schedule here: ``jump_rounds`` rounds of
+    ``neighbor_min_sweeps(iters=dense_iters)`` and one pointer jump
+    (``label <- label[label]``) per map; the sweeps wrapper picks the CUDA
+    kernel or the plain version by the tensor's device, so the three
+    strings do not differ. That schedule reproduces the reference's
+    result label for label; it is the exact labelling only for components
+    its reach covers.
+    """
+    if backend in ("auto", "scan"):
+        return connected_components_scan(
+            binary, max_rounds=32 if exact else 16
+        )
+    if backend not in _DENSE_BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'auto', 'scan' or one "
+            f"of {_DENSE_BACKENDS}"
+        )
+    b, h, w = binary.shape
+    hw = h * w
+    binary = binary.contiguous()
+    lbl = (
+        torch.arange(hw, dtype=torch.int32, device=binary.device)
+        .reshape(1, h, w)
+        .expand(b, h, w)
+        .contiguous()
     )
+    for _ in range(jump_rounds):
+        flat = neighbor_min_sweeps(binary, lbl, iters=dense_iters).reshape(
+            b, hw
+        )
+        lbl = torch.gather(flat, 1, flat.long()).reshape(b, h, w)
+    return lbl.reshape(b, hw)
 
 
 def _rev_cummin(x: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,24 @@
-"""VideoTextPipeline, CRNN path (port of ``vtd_tpu/runtime/pipeline.py``).
+"""VideoTextPipeline (port of ``vtd_tpu/runtime/pipeline.py``).
 
 Same API and result dicts as the reference: ``process_video`` (async,
 progress callback, summary), ``process_single_frame``, and the batch API
 ``dispatch_batch`` / ``process_batch``. Per frame batch the device runs
 one program: I420 unpack -> preprocess -> DBNet probability branch -> DB
-postprocess -> crop every slot -> CRNN on the top ``rec_budget`` slots
--> greedy CTC, and ships one small uint8 pack to the host. PyTorch
-launches asynchronously, so ``dispatch_batch`` returns once the work is
-enqueued (apart from the labelling's convergence checks, which wait for
-the device) and the pack lands in pinned host memory behind an event.
+postprocess -> crop every slot, and then
+  * CRNN engine: CRNN on the top ``rec_budget`` slots -> greedy CTC, all
+    shipped to the host in one small uint8 pack;
+  * transformer engine (``use_transformer_ocr=True``): the crops, cut to
+    the TrOCR input size and normalised, stay on the device; the host
+    reads the detection pack, keeps the slots that pass its filters, and
+    the recogniser decodes them in chunks of ``rec_chunk``.
+PyTorch launches asynchronously, so ``dispatch_batch`` returns once the
+work is enqueued (apart from the labelling's convergence checks, which
+wait for the device) and the pack lands in pinned host memory behind an
+event.
 
-Not in this slice: the TrOCR engine, temporal dedup, keyframe sampling,
-multi-device meshes and the two-stage runner (each raises
-NotImplementedError), and the Prometheus counters.
+Not in this slice: keyframe sampling, multi-device meshes and the
+two-stage runner (each raises NotImplementedError), and the Prometheus
+counters.
 """
 from __future__ import annotations
 
@@ -40,6 +46,25 @@ logger = logging.getLogger(__name__)
 _F16_SAFE_INPUT = 724
 
 
+def _dedup_summary(all_results: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Temporal-dedup summary fields: cross-frame text tracks (the same
+    string at an overlapping position in nearby frames is one track),
+    without singleton fragments: a 1-character string seen in a single
+    frame is far more likely postprocess noise than scene text."""
+    from ..ops.nms import temporal_dedup as merge_tracks
+
+    tracks = merge_tracks(all_results)
+    confirmed = [
+        t for t in tracks if t["count"] >= 2 or len(t["text"]) >= 2
+    ]
+    texts = sorted({t["text"] for t in confirmed})
+    return {
+        "text_tracks": confirmed,
+        "detected_texts": texts,
+        "unique_texts": len(texts),
+    }
+
+
 class VideoTextPipeline:
     def __init__(
         self,
@@ -52,6 +77,7 @@ class VideoTextPipeline:
         max_dets: int = 64,
         max_box_frac: float = 0.95,
         target_fps: float = 10.0,
+        rec_chunk: Optional[int] = None,
         rec_budget: Optional[int] = None,
         detector_input_size: int = 640,
         host_downscale: Optional[int] = None,
@@ -67,15 +93,6 @@ class VideoTextPipeline:
         parallel_mode: str = "fused",
         device: str = "cuda",
     ):
-        if use_transformer_ocr:
-            raise NotImplementedError(
-                "use_transformer_ocr=True (TrOCR) waits for the port's "
-                "TrOCR slice"
-            )
-        if temporal_dedup:
-            raise NotImplementedError(
-                "temporal_dedup waits for a later slice of the port"
-            )
         if sample_mode != "stride":
             raise NotImplementedError(
                 "sample_mode='keyframe' waits for the port's multi-stream "
@@ -92,7 +109,8 @@ class VideoTextPipeline:
             max_dets=max_dets, device=device,
         )
         self.recognizer = TextRecognizer(
-            recognizer_path, device=device, **(recognizer_kwargs or {})
+            recognizer_path, use_transformer=use_transformer_ocr,
+            device=device, **(recognizer_kwargs or {})
         )
         self.video_processor = VideoProcessor()
         # None = max(2*max_dets, B*K/4) crop slots recognized per batch
@@ -110,7 +128,23 @@ class VideoTextPipeline:
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.decode_workers = decode_workers
         self.decode_backend = decode_backend
-        self.crop_hw = (32, 128)
+        # Cross-frame text-track merging in the summary
+        self.temporal_dedup = temporal_dedup
+        self.use_transformer = use_transformer_ocr
+        if use_transformer_ocr:
+            tr = self.recognizer.transformer
+            self.crop_hw = (tr.cfg.image_size, tr.cfg.width)
+            # Crops decoded per recogniser call. It bounds memory, not a
+            # compile bucket: one encoder layer's float32 scores take
+            # chunk x heads x N^2 x 4 B (1024 crops of 384x384 through a
+            # ViT-base at once would need ~16 GB). The last chunk of a
+            # batch is simply shorter.
+            self.rec_chunk = int(rec_chunk or tr.pad_batch)
+            if self.rec_chunk < 1:
+                raise ValueError(f"rec_chunk must be >= 1, got {rec_chunk}")
+        else:
+            self.crop_hw = (32, 128)
+            self.rec_chunk = None  # the CRNN reads its whole budget at once
         self._pack_np = (
             np.float32
             if detector_input_size > _F16_SAFE_INPUT
@@ -133,10 +167,13 @@ class VideoTextPipeline:
         thresh: float,
         frame_valid: torch.Tensor,
         full_budget: bool,
-    ) -> torch.Tensor:
-        """The per-batch device program -> uint8 pack [B, K, nbytes]:
-        det block (boxes 4, polygon 8, score, valid, CTC confidence) as
-        float16 (float32 above ``_F16_SAFE_INPUT``) bytes, then T ids."""
+    ):
+        """The per-batch device program -> (uint8 pack [B, K, nbytes],
+        crops or None). CRNN engine: det block (boxes 4, polygon 8,
+        score, valid, CTC confidence) as float16 (float32 above
+        ``_F16_SAFE_INPUT``) bytes, then T ids; no crops. Transformer
+        engine: the 14-column det block alone, and the normalised crops
+        [B*K, H, W, 3] that stay on the device."""
         k = self.max_dets
         size = self.detector.input_size
         out_h, out_w = self.crop_hw
@@ -158,6 +195,22 @@ class VideoTextPipeline:
         crops = crop_and_resize_boxes_mm(
             frames_u8, post["boxes"] * scale, valid, out_h=out_h, out_w=out_w
         ).reshape(b * k, out_h, out_w, 3)
+
+        pack_dt = torch.float16 if self._pack_np == np.float16 else torch.float32
+        det_cols = [
+            post["boxes"],
+            post["polygons"].reshape(b, k, 8),
+            post["scores"][..., None],
+            valid.to(torch.float32)[..., None],
+        ]
+        if self.use_transformer:
+            det = torch.cat(det_cols, -1).to(pack_dt)
+            # BGR [0,1] -> RGB, mean/std 0.5 (the TrOCR processor's
+            # normalisation), held in the encoder's input type
+            crops = ((crops.flip(-1) - 0.5) / 0.5).to(
+                self.recognizer.transformer.cfg.dtype
+            )
+            return det.view(torch.uint8).reshape(b, k, -1), crops
 
         bk = b * k
         budget = bk if full_budget else self._effective_rec_budget(b)
@@ -183,20 +236,10 @@ class VideoTextPipeline:
         else:
             ctc_r = ctc_greedy_decode_arrays(self.recognizer.logits(crops))
             conf, ids = ctc_r["confidence"], ctc_r["ids"]
-        pack_dt = torch.float16 if self._pack_np == np.float16 else torch.float32
-        det = torch.cat(
-            [
-                post["boxes"],
-                post["polygons"].reshape(b, k, 8),
-                post["scores"][..., None],
-                valid.to(torch.float32)[..., None],
-                conf.reshape(b, k, 1),
-            ],
-            -1,
-        ).to(pack_dt)
+        det = torch.cat(det_cols + [conf.reshape(b, k, 1)], -1).to(pack_dt)
         det_bytes = det.view(torch.uint8).reshape(b, k, -1)
         ids_u8 = ids.reshape(b, k, -1).to(torch.uint8)
-        return torch.cat([det_bytes, ids_u8], -1)
+        return torch.cat([det_bytes, ids_u8], -1), None
 
     # ------------------------------------------------------------------
     def ship_dims(self, video_info: Dict[str, Any]):
@@ -244,19 +287,19 @@ class VideoTextPipeline:
         with torch.inference_mode():
             frames_dev = host.to(self.device, non_blocking=on_cuda)
             valid_dev = torch.from_numpy(valid).to(self.device)
-            pack = self._run_batch(
+            pack, crops = self._run_batch(
                 frames_dev, thr, valid_dev,
                 full_budget or self._full_budget_latched,
             )
             if not on_cuda:
-                return {"pack": pack, "event": None}
+                return {"pack": pack, "event": None, "crops": crops}
             out = torch.empty(
                 pack.shape, dtype=torch.uint8, pin_memory=True
             )
             out.copy_(pack, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        return {"pack": out, "event": event}
+        return {"pack": out, "event": event, "crops": crops}
 
     @staticmethod
     def _collect(handles: Dict[str, Any]) -> np.ndarray:
@@ -265,25 +308,52 @@ class VideoTextPipeline:
         return handles["pack"].numpy()
 
     def _parse_pack(self, out_pack: np.ndarray, b: int) -> Dict[str, Any]:
-        """Decode the pack (det block, then uint8 CTC ids)."""
-        nf = 15
+        """Decode the pack: det block of 14 columns, plus on the CRNN
+        engine the CTC confidence column and the uint8 CTC ids."""
+        nf = 14 if self.use_transformer else 15
         itemsize = np.dtype(self._pack_np).itemsize
         det = np.ascontiguousarray(
             out_pack[..., : itemsize * nf]
         ).view(self._pack_np).astype(np.float32)
-        ids = out_pack[..., itemsize * nf:].reshape(
-            b * self.max_dets, -1
-        ).astype(np.int32)
+        ctc = None
+        if not self.use_transformer:
+            ids = out_pack[..., itemsize * nf:].reshape(
+                b * self.max_dets, -1
+            ).astype(np.int32)
+            ctc = {
+                "ids": ids,
+                "emit": emit_mask_np(ids),
+                "confidence": det[..., 14].reshape(-1),
+            }
         return {
             "boxes": det[..., 0:4],
             "polys": det[..., 4:12].reshape(b, self.max_dets, 4, 2),
             "scores": det[..., 12],
             "valid": det[..., 13] > 0.5,
-            "ctc": {
-                "ids": ids,
-                "emit": emit_mask_np(ids),
-                "confidence": det[..., 14].reshape(-1),
-            },
+            "ctc": ctc,
+        }
+
+    def _recognize_slots(
+        self, crops_flat: torch.Tensor, need: List[int]
+    ) -> Dict[int, Any]:
+        """Transformer engine: decode the kept slots in chunks of
+        ``rec_chunk``. Every chunk is enqueued before the first result is
+        read, so the host waits for the device once per batch."""
+        tr = self.recognizer.transformer
+        outs = []
+        for c0 in range(0, len(need), self.rec_chunk):
+            sel = torch.as_tensor(
+                need[c0:c0 + self.rec_chunk], dtype=torch.int64,
+                device=crops_flat.device,
+            )
+            outs.append(tr.generate(crops_flat[sel]))
+        if not outs:
+            return {}
+        toks = torch.cat([t for t, _ in outs]).cpu().numpy()
+        confs = torch.cat([c for _, c in outs]).cpu().numpy()
+        return {
+            flat: (tr.tokenizer.decode(toks[i]), float(confs[i]))
+            for i, flat in enumerate(need)
         }
 
     def _process_batch(
@@ -315,7 +385,11 @@ class VideoTextPipeline:
         # latches to the full budget for every later batch.
         n_valid = int(np.count_nonzero(parsed["valid"]))
         budget = self._effective_rec_budget(b)
-        if n_valid > budget and not self._full_budget_latched:
+        if (
+            parsed["ctc"] is not None
+            and n_valid > budget
+            and not self._full_budget_latched
+        ):
             if not self._rec_budget_warned:
                 self._rec_budget_warned = True
                 logger.warning(
@@ -349,7 +423,9 @@ class VideoTextPipeline:
         ).tolist()
         polys_int = np.round(polys).astype(int)
         texts: Dict[int, Any] = {}
-        if need:
+        if ctc is None:
+            texts = self._recognize_slots(handles["crops"], need)
+        elif need:
             sel = np.asarray(need)
             decoded = ids_to_text(ctc["ids"][sel], ctc["emit"][sel])
             for kk, flat in enumerate(need):
@@ -433,10 +509,7 @@ class VideoTextPipeline:
         import queue as _queue
         import threading as _threading
 
-        if temporal_dedup:
-            raise NotImplementedError(
-                "temporal_dedup waits for a later slice of the port"
-            )
+        dedup = self.temporal_dedup if temporal_dedup is None else temporal_dedup
         if sample_mode not in (None, "stride"):
             raise NotImplementedError(
                 "sample_mode='keyframe' waits for the port's multi-stream "
@@ -580,6 +653,8 @@ class VideoTextPipeline:
             all_results.sort(key=lambda r: r["frame_number"])
             processing_time = time.time() - start_time
             summary = summarize(all_results, processing_time, frame_count)
+            if dedup:
+                summary.update(_dedup_summary(all_results))
             return {
                 "status": "success",
                 "results": all_results,

@@ -1,10 +1,12 @@
-"""Batched CRNN text recognizer (port of the CRNN path of
-``vtd_tpu/runtime/recognizer.py``).
+"""Batched text recognizer (port of ``vtd_tpu/runtime/recognizer.py``):
+a facade over the CRNN + greedy CTC and the transformer (TrOCR-class)
+recognizers, chosen by ``use_transformer``.
 
 ``recognize`` / ``recognize_batch`` return ``{'text', 'confidence'}``;
-``recognize_crops_device`` takes normalised [N, 32, 128, 3] crops that
-are already on the device. The TrOCR engine and the native beam decoder
-wait for later slices of the port.
+``recognize_crops_device`` takes normalised crops that are already on
+the device ([N, 32, 128, 3] for the CRNN, [N, image_size, width, 3] for
+the transformer). The native beam decoder waits for a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -24,11 +26,13 @@ logger = logging.getLogger(__name__)
 
 
 class TextRecognizer:
-    """CRNN + greedy CTC.
+    """Facade over the CRNN and transformer recognizers.
 
-    ``model_path``: a torch-format state dict of the port's ``CRNN``
-    (``convert.crnn_from_jax`` makes one from ``vtd_tpu`` weights);
-    without one, weights are drawn from ``seed``.
+    ``model_path``: a torch-format state dict of the port's ``CRNN`` or
+    ``TrOCR`` (``convert.crnn_from_jax`` / ``convert.trocr_from_jax``
+    make one from ``vtd_tpu`` weights); without one, weights are drawn
+    from ``seed``. ``use_transformer`` defaults to False here (the
+    reference defaults to True) until serving is wired to the port.
     """
 
     def __init__(
@@ -39,19 +43,27 @@ class TextRecognizer:
         decoder: str = "greedy",
         dtype: Optional[torch.dtype] = None,
         device: str = "cuda",
+        transformer_config=None,
     ):
+        self.use_transformer = use_transformer
+        self.vocab = build_vocab()
         if use_transformer:
-            raise NotImplementedError(
-                "the TrOCR recognizer waits for the port's TrOCR slice; "
-                "use use_transformer=False (CRNN)"
+            from .trocr_runtime import TransformerRecognizer
+
+            self.device = resolve_device(device)
+            self.transformer = TransformerRecognizer(
+                model_path=model_path, config=transformer_config, seed=seed,
+                device=device,
             )
+            self.crnn = None
+            return
+        self.transformer = None
         if decoder != "greedy":
             raise NotImplementedError(
                 "the native CTC beam decoder waits for a later slice of "
                 "the port; use decoder='greedy'"
             )
         self.device = resolve_device(device)
-        self.vocab = build_vocab()
         crnn = CRNN(dtype=compute_dtype(self.device, dtype))
         if model_path:
             crnn.load_state_dict(load_state_dict(model_path))
@@ -71,6 +83,8 @@ class TextRecognizer:
         """Ragged uint8 BGR crops -> [{'text', 'confidence'}]."""
         if not images:
             return []
+        if self.use_transformer:
+            return self.transformer.recognize_batch(images)
         try:
             import cv2
 
@@ -93,7 +107,9 @@ class TextRecognizer:
     def recognize_crops_device(
         self, crops: torch.Tensor
     ) -> Tuple[List[str], np.ndarray]:
-        """[N, 32, 128, 3] crops on the device -> (texts, confidences)."""
+        """Normalised crops on the device -> (texts, confidences)."""
+        if self.use_transformer:
+            return self.transformer.recognize_crops_device(crops)
         arrs = ctc_greedy_decode_arrays(self.logits(crops))
         ids = arrs["ids"].cpu().numpy()
         emit = arrs["emit"].cpu().numpy()
