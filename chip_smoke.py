@@ -8,7 +8,13 @@ one compiler process per source, all at once) and the card's name and
 power limit are printed. Then the phases, each of which fails the run on
 any error:
   segmented  hold ``segmented_cc_round`` against its plain PyTorch
-             version on the card, label for label, and time both;
+             version on the card, label for label, at the main path's
+             shape and on every edge of its launch plan (batch of one,
+             partial strips, lines shorter than a warp, 1xN, Nx1, the
+             tallest map the plan takes), check the whole labelling
+             schedule against the CPU, then time the kernel on the device
+             (a CUDA graph of rounds), the wrapper on the host, and the
+             plain version;
   sweeps     the same for ``neighbor_min_sweeps`` (iters 1/4/8, noise,
              staircase, banners, empty, full, border, a 50x70 map);
   dense      the dense labelling path, ``connected_components(
@@ -31,6 +37,7 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -81,7 +88,9 @@ def banner(angle: float, length: int = 280, width: int = 6):
 
 def record_launches(results, kernel: str, key: str, count: int) -> None:
     """A kernel's launch count on one path, into its entry of the kernels
-    line (``launches`` is the count on the kernel's own main path)."""
+    line (``launches`` is the count on the kernel's own main path). The
+    counts are of wrapper calls that launched; ``cuda_launches`` counts
+    the CUDA launches they made where one call makes several."""
     results.setdefault(kernel, {"name": kernel})[key] = count
 
 
@@ -105,23 +114,105 @@ def map_cases(np, rng, with_extremes: bool = False):
     return cases
 
 
+def graph_us(torch, fn, rounds: int = 30, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in microseconds: a CUDA graph of
+    ``rounds`` calls replayed ``reps`` times between CUDA events, so the
+    host's launch cost is out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * rounds) * 1e3
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds (enqueue only; the
+    device drains the queue after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def tall_height(plan_of, w: int) -> int:
+    """The largest H whose [H, w] map the kernel's launch plan takes."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            plan_of(mid, w)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
 def segmented_phase(torch, np, results):
+    """segmented_cc_round against its plain version on the card, label for
+    label, on the main path's shape and on every edge of the launch plan
+    (batch of one, partial strips, short and single-cell lines, the
+    tallest map the plan takes); the whole labelling schedule against the
+    CPU; then device time, host time per call and the plain version's."""
     from vtd_tpu_torch.ops.cc_kernels import (
-        segmented_cc_round, segmented_cc_round_plain,
+        segmented_cc_round, segmented_cc_round_plain, segmented_plan,
     )
     from vtd_tpu_torch.ops.db_postprocess import connected_components
 
     rng = np.random.default_rng(0)
-    cases = map_cases(np, rng)
+    cases = map_cases(np, rng, with_extremes=True)
+    big = cases[:]  # [B, MAP, MAP]: the schedule is checked on these too
 
-    ident = np.arange(MAP * MAP, dtype=np.int32).reshape(1, MAP, MAP)
-    perm = rng.permutation(MAP * MAP).astype(np.int32).reshape(1, MAP, MAP)
+    def noise(b, h, w, p=0.5):
+        return rng.random((b, h, w)) < p
+
+    cases.append(("B=1", noise(1, MAP, MAP)))
+    odd = noise(5, 50, 70)
+    odd[3] = True
+    odd[4] = False
+    odd[4, 0, :] = odd[4, -1, :] = odd[4, :, 0] = odd[4, :, -1] = True
+    cases.append(("50x70", odd))
+    p = segmented_plan(333, 251)
+    cases.append((f"333x251 (strips {p.rows}/{p.cols}/{p.diags})",
+                  noise(3, 333, 251, 0.6)))
+    cases.append(("40x13 (W<32)", noise(4, 40, 13, 0.6)))
+    cases.append(("13x40 (H<32)", noise(4, 13, 40, 0.6)))
+    line = noise(4, 1, 300, 0.7)
+    line[3] = True
+    cases.append(("1x300", line))
+    cases.append(("300x1", line.transpose(0, 2, 1).copy()))
+    cases.append(("1x1", np.array([[[True]], [[False]]])))
+    tall = tall_height(segmented_plan, 64)
+    cases.append((f"{tall}x64 (tallest)", noise(1, tall, 64, 0.6)))
+
     max_diff = 0
+    n_checks = 0
     for name, m in cases:
         fg = torch.from_numpy(np.ascontiguousarray(m)).cuda()
+        b, h, w = fg.shape
+        ident = np.arange(h * w, dtype=np.int32).reshape(1, h, w)
+        perm = rng.permutation(h * w).astype(np.int32).reshape(1, h, w)
         for lab in (ident, perm):
             lbl = torch.from_numpy(
-                np.ascontiguousarray(np.broadcast_to(lab, (B, MAP, MAP)))
+                np.ascontiguousarray(np.broadcast_to(lab, (b, h, w)))
             ).cuda()
             for diag in (False, True):
                 got = segmented_cc_round(fg, lbl, diag)
@@ -129,38 +220,53 @@ def segmented_phase(torch, np, results):
                 torch.cuda.synchronize()
                 diff = int((got != want).sum())
                 max_diff = max(max_diff, int((got - want).abs().max()))
+                n_checks += 1
                 if diff:
                     raise AssertionError(
                         f"segmented_cc_round differs from its plain version "
                         f"on {name} (diag={diag}): {diff} labels"
                     )
+    for name, m in big:
         # the whole production schedule (fast path + repair loop), card
         # kernel against the plain round on the CPU
+        fg = torch.from_numpy(np.ascontiguousarray(m)).cuda()
         got = connected_components(fg).cpu()
         want = connected_components(fg.cpu())
         if not torch.equal(got, want):
             raise AssertionError(f"connected_components differs on {name}")
     print(f"kernel check: segmented_cc_round equals its plain version on "
-          f"{len(cases)} map sets x 2 label seeds x diag False/True, and "
-          f"the full labelling schedule matches; max label diff {max_diff}")
+          f"{len(cases)} map sets ({', '.join(n for n, _ in cases)}) x 2 "
+          f"label seeds x diag False/True ({n_checks} comparisons), and the "
+          f"full labelling schedule matches on the {len(big)} [{B},{MAP},"
+          f"{MAP}] sets; max label diff {max_diff}")
 
     fg = torch.from_numpy(cases[1][1]).cuda()
-    lbl = torch.from_numpy(
-        np.ascontiguousarray(np.broadcast_to(ident, (B, MAP, MAP)))
-    ).cuda()
+    lbl = torch.arange(MAP * MAP, dtype=torch.int32, device="cuda").reshape(
+        1, MAP, MAP).expand(B, MAP, MAP).contiguous()
     times = {}
     for diag in (False, True):
+        def kern(diag=diag):
+            return segmented_cc_round(fg, lbl, diag)
+
         times[("plain", diag)] = time_ms(
             lambda: segmented_cc_round_plain(fg, lbl, diag))
-        times[("kernel", diag)] = time_ms(
-            lambda: segmented_cc_round(fg, lbl, diag))
+        times[("kernel", diag)] = time_ms(kern)
+        times[("device", diag)] = graph_us(torch, kern)
+        times[("host", diag)] = host_us(torch, kern)
+        times[("device2", diag)] = graph_us(torch, kern)
         times[("plain2", diag)] = time_ms(
             lambda: segmented_cc_round_plain(fg, lbl, diag))
     # the fast path launches rounds with diag False, True, False
-    kernel_ms = (2 * times[("kernel", False)] + times[("kernel", True)]) / 3
+    def mix(f, t):
+        return (2 * f + t) / 3
+
+    dev = {d: (times[("device", d)] + times[("device2", d)]) / 2
+           for d in (False, True)}
+    device_us = mix(dev[False], dev[True])
+    kernel_ms = mix(times[("kernel", False)], times[("kernel", True)])
     plain_f = (times[("plain", False)] + times[("plain2", False)]) / 2
     plain_t = (times[("plain", True)] + times[("plain2", True)]) / 2
-    plain_ms = (2 * plain_f + plain_t) / 3
+    plain_ms = mix(plain_f, plain_t)
     # one round reads the mask (1 B) and labels (4 B), writes labels (4 B)
     cells = B * MAP * MAP
     bound_bytes_ms = cells * 9 / HBM_BYTES_PER_S * 1e3
@@ -169,13 +275,21 @@ def segmented_phase(torch, np, results):
     # diagonals)
     ops = cells * (2 * 9 + 2 + 2 / 3)
     bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
-    print(f"segmented_cc_round per launch [{B}x{MAP}x{MAP}]: kernel "
-          f"diag=False {times[('kernel', False)]:.4f} ms, diag=True "
-          f"{times[('kernel', True)]:.4f} ms; plain diag=False "
-          f"{times[('plain', False)]:.4f}/{times[('plain2', False)]:.4f} ms, "
-          f"diag=True {times[('plain', True)]:.4f}/"
-          f"{times[('plain2', True)]:.4f} ms; bound "
-          f"{max(bound_bytes_ms, bound_ops_ms) * 1e3:.2f} us")
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    print(f"segmented_cc_round per round [{B}x{MAP}x{MAP}], device time "
+          f"(CUDA graph of 30 rounds): diag=False "
+          f"{times[('device', False)]:.3f}/{times[('device2', False)]:.3f} us "
+          f"(2 launches), diag=True {times[('device', True)]:.3f}/"
+          f"{times[('device2', True)]:.3f} us (4 launches), F/T/F mix "
+          f"{device_us:.3f} us; host time per wrapper call diag=False "
+          f"{times[('host', False)]:.3f} us, diag=True "
+          f"{times[('host', True)]:.3f} us; events around a loop of wrapper "
+          f"calls diag=False {times[('kernel', False)] * 1e3:.3f} us, "
+          f"diag=True {times[('kernel', True)] * 1e3:.3f} us; plain "
+          f"diag=False {times[('plain', False)]:.4f}/"
+          f"{times[('plain2', False)]:.4f} ms, diag=True "
+          f"{times[('plain', True)]:.4f}/{times[('plain2', True)]:.4f} ms; "
+          f"bound {bound_ms * 1e3:.2f} us")
     results["segmented_cc_round"] = {
         "name": "segmented_cc_round",
         "route": "cuda",
@@ -189,7 +303,12 @@ def segmented_phase(torch, np, results):
         "plain_us": plain_ms * 1e3,
         "kernel_us_diag": {str(d): times[("kernel", d)] * 1e3
                            for d in (False, True)},
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "kernel_device_us": device_us,
+        "kernel_device_us_diag": {str(d): dev[d] for d in (False, True)},
+        "host_us_per_call": {str(d): times[("host", d)]
+                             for d in (False, True)},
+        "cuda_launches_per_round": {"False": 2, "True": 4},
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
     }
@@ -548,6 +667,7 @@ def trocr_phase(torch, np, card, results):
 
     chunks.clear()
     segmented_cc_round.launches = 0
+    segmented_cc_round.cuda_launches = 0
     neighbor_min_sweeps.launches = 0
     t0 = time.perf_counter()
     handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
@@ -562,6 +682,7 @@ def trocr_phase(torch, np, card, results):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = segmented_cc_round.launches
+    cuda_launches = segmented_cc_round.cuda_launches
     if launches < 3 * N_TROCR_BATCHES:
         raise AssertionError(
             f"segmented_cc_round launched {launches} times over "
@@ -569,6 +690,8 @@ def trocr_phase(torch, np, card, results):
         )
     record_launches(results, "segmented_cc_round", "launches_trocr_path",
                     launches)
+    record_launches(results, "segmented_cc_round", "cuda_launches_trocr_path",
+                    cuda_launches)
     record_launches(results, "neighbor_min_sweeps", "launches_trocr_path",
                     neighbor_min_sweeps.launches)
     n_det = check_results(outs)
@@ -579,7 +702,8 @@ def trocr_phase(torch, np, card, results):
     if max(chunks) > pipe.rec_chunk:
         raise AssertionError(f"a chunk of {max(chunks)} > rec_chunk")
     print(f"TrOCR path: {N_TROCR_BATCHES} pipelined batches x {B} frames, "
-          f"{launches} segmented_cc_round launches, {n_det} detections, "
+          f"{launches} segmented_cc_round calls ({cuda_launches} CUDA "
+          f"launches), {n_det} detections, "
           f"{n_crops} crops recognised in {len(chunks)} chunks")
     print(f"TrOCR path throughput {B * N_TROCR_BATCHES / elapsed:.3f} frames/s "
           f"pipelined, {n_crops / elapsed:.3f} crops/s, "
@@ -606,6 +730,7 @@ def pipeline_phase(torch, np, card, results):
     torch.cuda.synchronize()
 
     segmented_cc_round.launches = 0
+    segmented_cc_round.cuda_launches = 0
     neighbor_min_sweeps.launches = 0
     t0 = time.perf_counter()
     handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
@@ -625,8 +750,11 @@ def pipeline_phase(torch, np, card, results):
             f"segmented_cc_round launched {launches} times over "
             f"{N_BATCHES} batches; the main path needs >= 3 per batch"
         )
+    cuda_launches = segmented_cc_round.cuda_launches
     # the dense labelling kernel is on neither video path: 0 expected
     record_launches(results, "segmented_cc_round", "launches", launches)
+    record_launches(results, "segmented_cc_round", "cuda_launches",
+                    cuda_launches)
     record_launches(results, "neighbor_min_sweeps", "launches_crnn_path",
                     neighbor_min_sweeps.launches)
 
@@ -636,8 +764,9 @@ def pipeline_phase(torch, np, card, results):
     pipe.process_batch(batches[1], valid)
     torch.cuda.synchronize()
     latency = time.perf_counter() - t1
-    print(f"main path: {N_BATCHES} batches x {B} frames, {launches} kernel "
-          f"launches, {n_det} detections")
+    print(f"main path: {N_BATCHES} batches x {B} frames, {launches} "
+          f"segmented_cc_round calls ({cuda_launches} CUDA launches), "
+          f"{n_det} detections")
     print(f"throughput {B * N_BATCHES / elapsed:.3f} frames/s pipelined, "
           f"single-batch latency {latency * 1e3:.3f} ms "
           f"(seeded weights, bf16, {card})")
@@ -721,6 +850,10 @@ def main(argv=None) -> int:
         if name in phases:
             t0 = time.perf_counter()
             run[name]()
+            # free what the phase held (CUDA graphs and their pools, test
+            # maps) before the next phase's timings
+            gc.collect()
+            torch.cuda.empty_cache()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))

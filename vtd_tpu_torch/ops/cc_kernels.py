@@ -17,7 +17,9 @@ CUDA tensors launch ``csrc/neighbor_min_sweeps.cu``; CPU tensors run
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -110,16 +112,117 @@ def _check(binary: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("binary and labels are on different devices")
 
 
-def _round_kernel():
-    from .._build import load
+_SMEM_LIMIT = 232448  # dynamic shared memory one block can have on sm_90
+_MAX_GRID_Y = 65535  # the map index is blockIdx.y
 
-    fn = load("segmented_cc").vtd_segmented_cc_round
-    if fn.argtypes is None:  # first use: declare the C signature
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def _mask_pitch(n: int) -> int:
+    """Bytes per row of a strip's mask: an odd number of words, so that a
+    warp reading one column of 32 rows hits 32 banks."""
+    return _odd(-(-n // 4)) * 4
+
+
+def _strip_smem(lines: int, n: int) -> int:
+    """K1 and K2: masked and working labels of ``lines`` lines of ``n``
+    cells plus two halo lines, and their mask, each with 3 cells of slack
+    for the 16-byte phase (K1 takes rows of W cells, K2 columns of H)."""
+    cells = (lines + 2) * n + 3
+    return 8 * (-(-cells // 4) * 4) + -(-cells // 16) * 16
+
+
+def _diag_smem(d: int, h: int) -> int:
+    """K3/K4: two runs of d/2 diagonals sheared into columns, all H rows
+    each, and their mask."""
+    return 2 * h * (4 * _odd(d // 2) + _mask_pitch(d // 2))
+
+
+def _pick(cap: int, smem_of, least: int = 1) -> int | None:
+    """The largest power of two in [least, cap] whose strip fits a block's
+    shared memory (``cap`` keeps every warp of a block on a line)."""
+    size = cap
+    while size >= least:
+        if smem_of(size) <= _SMEM_LIMIT:
+            return size
+        size //= 2
+    return None
+
+
+class SegmentedPlan(NamedTuple):
+    """Launch plan of one ``segmented_cc_round`` on [B, H, W] maps: strip
+    sizes, blocks per map and dynamic shared bytes of each phase, and the
+    first diagonal of each kind (main diagonals are c - r, anti-diagonals
+    c + r). Block g of the row (column) phase covers rows (columns)
+    [g*size, (g+1)*size). The diagonals of a kind form runs of diags/2,
+    run i covering [first + i*diags/2, first + (i+1)*diags/2); block g of a
+    diagonal phase takes runs g and g + grid_diag. The fields are the C
+    ``Plan`` struct of ``csrc/segmented_cc.cu``, in order."""
+
+    rows: int
+    cols: int
+    diags: int
+    grid_rows: int
+    grid_cols: int
+    grid_diag: int
+    smem_rows: int
+    smem_cols: int
+    smem_diag: int
+    main_first: int
+    anti_first: int
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(h: int, w: int):
+    if h < 1 or w < 1:
+        raise ValueError(f"segmented_cc_round needs H, W >= 1, got {h}x{w}")
+    r = _pick(min(8, _pow2_floor(h)), lambda s: _strip_smem(s, w))
+    c = _pick(min(8, _pow2_floor(w)), lambda s: _strip_smem(s, h))
+    d = _pick(max(2, min(16, _pow2_floor(h + w - 1))),
+              lambda s: _diag_smem(s, h), least=2)
+    for what, size in (("a row", r), ("a column", c), ("a diagonal", d)):
+        if size is None:
+            raise ValueError(
+                f"segmented_cc_round: {what} strip of a {h}x{w} map needs "
+                f"more than the {_SMEM_LIMIT} B of shared memory a block "
+                f"can have (rows: {_strip_smem(1, w)} B, columns: "
+                f"{_strip_smem(1, h)} B, diagonals: {_diag_smem(2, h)} B)"
+            )
+    runs = -(-(h + w - 1) // (d // 2))  # of d/2 diagonals, two a block
+    plan = SegmentedPlan(
+        r, c, d, -(-h // r), -(-w // c), -(-runs // 2),
+        _strip_smem(r, w), _strip_smem(c, h), _diag_smem(d, h), -(h - 1), 0,
+    )
+    return plan, (ctypes.c_int * len(plan))(*plan)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def segmented_plan(h: int, w: int) -> SegmentedPlan:
+    """The launch plan for [*, h, w] maps; ``ValueError`` past the shared
+    memory a block can have."""
+    return _plan(int(h), int(w))[0]
+
+
+_round_fn = None
+
+
+def _round_kernel():
+    global _round_fn
+    if _round_fn is None:  # first use: build, load, declare the C signature
+        from .._build import load
+
+        fn = load("segmented_cc").vtd_segmented_cc_round
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
-    return fn
+        _round_fn = fn
+    return _round_fn
 
 
 def segmented_cc_round(
@@ -129,35 +232,57 @@ def segmented_cc_round(
 
     binary [B,H,W] bool, labels [B,H,W] int32 -> new labels [B,H,W]
     int32; ``diag`` adds the diagonal ladders. CUDA tensors launch the
-    kernel (contiguous inputs required); CPU tensors take the plain twin.
+    kernel (contiguous inputs required; 2 kernels a round, 4 with
+    ``diag``); CPU tensors take the plain twin. Off the CPU, maps whose
+    strips do not fit a block's shared memory raise ``ValueError`` (see
+    ``segmented_plan``) before anything is allocated or launched: a
+    strip of one whole row or column must fit, so H and W are each at most
+    8607 cells.
     """
     _check(binary, labels)
-    if binary.device.type == "cpu":
+    dev = binary.device
+    if dev.type == "cpu":
         return segmented_cc_round_plain(binary, labels, diag)
-    if binary.device.type != "cuda":
-        raise ValueError(f"unsupported device {binary.device}")
+    b, h, w = binary.shape
+    if b * h * w >= 2 ** 31 or b > _MAX_GRID_Y:
+        raise ValueError(
+            f"batch {b}x{h}x{w} too large for int32 labels or the kernel's "
+            f"grid (B <= {_MAX_GRID_Y})"
+        )
+    if b * h * w == 0:
+        return torch.empty_like(labels)
+    _, plan = _plan(h, w)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not (binary.is_contiguous() and labels.is_contiguous()):
         raise ValueError("segmented_cc_round needs contiguous tensors")
-    b, h, w = binary.shape
-    if b * h * w >= 2 ** 31:
-        raise ValueError("batch too large for int32 labels")
-    scratch = torch.empty_like(labels)
+    fn = _round_kernel()
+    # the transposed labels, then (from a 16-byte boundary) the transposed
+    # mask, one byte a cell
+    n = b * h * w
+    scratch = torch.empty(-(-n // 4) * 5, dtype=torch.int32, device=dev)
     out = torch.empty_like(labels)
-    stream = torch.cuda.current_stream(binary.device).cuda_stream
-    with torch.cuda.device(binary.device):
-        err = _round_kernel()(
-            binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), b, h, w, int(bool(diag)), stream,
-        )
+    args = (binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), b, h, w, int(bool(diag)), plan)
+    # The raw stream pointer: a torch.cuda.Stream object costs several µs
+    # of host time per call, as much as a kernel launch.
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"segmented_cc_round launch failed: CUDA error {err}")
     with _count_lock:
         segmented_cc_round.launches += 1
+        segmented_cc_round.cuda_launches += 4 if diag else 2
     return out
 
 
-# Launches of the CUDA kernel (CPU calls do not count).
+# Wrapper calls that launched the CUDA kernels (CPU calls do not count),
+# and the CUDA launches they made: 2 a round, 4 with ``diag``.
 segmented_cc_round.launches = 0
+segmented_cc_round.cuda_launches = 0
 
 
 def neighbor_min_sweeps_plain(
@@ -174,7 +299,6 @@ def neighbor_min_sweeps_plain(
 
 
 _SWEEP_TILE = 32  # kTile of csrc/neighbor_min_sweeps.cu
-_SMEM_LIMIT = 232448  # dynamic shared memory one block can have on sm_90
 
 
 def sweep_smem_bytes(iters: int) -> int:

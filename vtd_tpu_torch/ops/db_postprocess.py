@@ -88,7 +88,10 @@ def connected_components(
 
     ``backend`` "auto" / "scan": the production schedule, 3 unrolled
     segmented rounds and a repair loop of up to 16 rounds (32 with
-    ``exact``). The reference's dense backends "pallas", "pallas-auto"
+    ``exact``). On a CUDA tensor its kernel takes maps of at most 8607
+    cells in H and in W (``cc_kernels.segmented_plan``) and raises
+    ``ValueError`` past that; ``db_postprocess`` hands it maps of
+    ``detector_input_size / work_stride`` cells a side. The reference's dense backends "pallas", "pallas-auto"
     and "xla" all name one schedule here: ``jump_rounds`` rounds of
     ``neighbor_min_sweeps(iters=dense_iters)`` and one pointer jump
     (``label <- label[label]``) per map; the sweeps wrapper picks the CUDA
