@@ -15,11 +15,16 @@ any error:
              schedule against the CPU, then time the kernel on the device
              (a CUDA graph of rounds), the wrapper on the host, and the
              plain version;
-  sweeps     the same for ``neighbor_min_sweeps`` (iters 1/4/8, noise,
-             staircase, banners, empty, full, border, a 50x70 map);
+  sweeps     the same for ``neighbor_min_sweeps`` (iters 1/4/8/65 on
+             noise, staircase, banners, empty, full, border, B=1, maps
+             that are no multiple of the tile, 1x1, 1x300, 300x1, 7x1000,
+             a halo past the map; an empty batch), then its time per call
+             in a loop of calls (``ms``), its device time (a CUDA graph of
+             calls), its host time per call and the plain version's;
   dense      the dense labelling path, ``connected_components(
              backend="pallas")``, on the card against the CPU, with its
-             4 kernel launches counted;
+             4 wrapper calls and CUDA launches counted, its time per call
+             and its device time (a CUDA graph of calls);
   crnn       drive the CRNN video path through ``VideoTextPipeline`` at
              full width (ResNet50-FPN DBNet at 640x640, CRNN with 2 BiLSTM
              layers of 256, seeded random weights) over a few pipelined
@@ -30,7 +35,10 @@ any error:
              1024x12, 50 steps, bf16), check the model's numerics, count
              crops recognised and kernel launches, print stage times.
 Last come one JSON line describing every kernel and the device line.
-``--phases a,b`` runs a subset while working on one phase.
+``--phases a,b`` runs a subset while working on one phase. ``--baseline
+DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
+parent commit unpacked with ``git archive``) beside this one's, in turns,
+in the sweeps and dense phases.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
 nothing of JAX.
@@ -38,6 +46,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import subprocess
 import sys
@@ -314,21 +323,72 @@ def segmented_phase(torch, np, results):
     }
 
 
-def sweeps_phase(torch, np, results):
+def load_baseline(path: str):
+    """The ``vtd_tpu_torch`` package of another checkout (for example the
+    parent commit unpacked with ``git archive``), imported as
+    ``vtd_baseline`` beside this one; it builds its own kernels from its
+    own sources into its own ``.build``."""
+    import importlib.util
+    from pathlib import Path
+
+    init = Path(path).resolve() / "vtd_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        "vtd_baseline", init, submodule_search_locations=[str(init.parent)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["vtd_baseline"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def sweeps_times(torch, ops, fg, lbl, iters):
+    """One reading of a sweeps kernel at the main shape: ``ms`` per wrapper
+    call in a loop of calls between CUDA events, device µs per call (CUDA
+    graph of 30 calls) and host µs per call."""
+    def kern():
+        return ops.neighbor_min_sweeps(fg, lbl, iters)
+
+    return {"ms": time_ms(kern, reps=100), "device_us": graph_us(torch, kern),
+            "host_us": host_us(torch, kern)}
+
+
+def sweeps_phase(torch, np, results, baseline=None):
     """neighbor_min_sweeps against its plain version on the card, label
-    for label, then time per launch at the dense path's shape."""
+    for label, on the main path's shape and on every edge of its launch
+    plan (batch of one, partial tiles, 1x1, 1xN, Nx1, a halo past the map,
+    iters split over several launches); then its times at the dense
+    path's shape: a loop of wrapper calls (``ms``), device time (CUDA
+    graph) and host time per call, and the plain version's. With
+    ``baseline`` (another checkout's package) that checkout's kernel is
+    timed beside this one's, in turns."""
+    from vtd_tpu_torch.ops import cc_kernels
     from vtd_tpu_torch.ops.cc_kernels import (
-        neighbor_min_sweeps, neighbor_min_sweeps_plain,
+        neighbor_min_sweeps, neighbor_min_sweeps_plain, sweep_plan,
     )
 
     rng = np.random.default_rng(1)
     cases = map_cases(np, rng, with_extremes=True)
-    # a size that is no multiple of the kernel's 32x32 tile
+
+    def noise(b, h, w, p=0.6):
+        return rng.random((b, h, w)) < p
+
+    cases.append(("B=1", noise(1, MAP, MAP, 0.5)))
+    # a size that is no multiple of the kernel's tile
     odd = rng.random((5, 50, 70)) < 0.5
     odd[3] = True
     odd[4] = False
     odd[4, 0, :] = odd[4, -1, :] = odd[4, :, 0] = odd[4, :, -1] = True
     cases.append(("50x70", odd))
+    p = sweep_plan(161, 83, 8)
+    cases.append((f"161x83 (tile {p.tile}, {p.grid_rows}x{p.grid_cols} "
+                   f"tiles)", noise(3, 161, 83)))
+    line = noise(4, 1, 300, 0.7)
+    line[3] = True
+    cases.append(("1x300", line))
+    cases.append(("300x1", line.transpose(0, 2, 1).copy()))
+    cases.append(("1x1", np.array([[[True]], [[False]]])))
+    cases.append(("7x1000", noise(2, 7, 1000)))
+    cases.append(("5x9 (halo past the map)", noise(2, 5, 9, 0.8)))
+    iter_set = (1, 4, 8, 65)
     max_diff = 0
     n_checks = 0
     for name, m in cases:
@@ -341,8 +401,10 @@ def sweeps_phase(torch, np, results):
             (b, h, w))
         for lab in (ident, perm):
             lbl = torch.from_numpy(np.ascontiguousarray(lab)).cuda()
-            for iters in (1, 4, 8):
+            for iters in iter_set:
+                before = neighbor_min_sweeps.cuda_launches
                 got = neighbor_min_sweeps(fg, lbl, iters)
+                launched = neighbor_min_sweeps.cuda_launches - before
                 want = neighbor_min_sweeps_plain(fg, lbl, iters)
                 torch.cuda.synchronize()
                 diff = int((got != want).sum())
@@ -353,47 +415,91 @@ def sweeps_phase(torch, np, results):
                         f"neighbor_min_sweeps differs from its plain version "
                         f"on {name} (iters={iters}): {diff} labels"
                     )
+                if launched != sweep_plan(h, w, iters).launches:
+                    raise AssertionError(
+                        f"{launched} CUDA launches for iters={iters}")
+    empty = torch.zeros((0, MAP, MAP), dtype=torch.bool, device="cuda")
+    if neighbor_min_sweeps(empty, empty.int(), 8).shape != empty.shape:
+        raise AssertionError("empty batch malformed")
     print(f"kernel check: neighbor_min_sweeps equals its plain version on "
-          f"{len(cases)} map sets x 2 label seeds x iters 1/4/8 "
-          f"({n_checks} comparisons); max label diff {max_diff}")
+          f"{len(cases)} map sets ({', '.join(n for n, _ in cases)}) x 2 "
+          f"label seeds x iters {'/'.join(map(str, iter_set))} "
+          f"({n_checks} comparisons, iters 65 in "
+          f"{sweep_plan(MAP, MAP, 65).launches} CUDA launches); an empty "
+          f"batch returns empty; max label diff {max_diff}")
 
     iters = 8
     fg = torch.from_numpy(cases[1][1]).cuda()
     lbl = torch.arange(MAP * MAP, dtype=torch.int32, device="cuda").reshape(
         1, MAP, MAP).expand(B, MAP, MAP).contiguous()
+    base = None if baseline is None else importlib.import_module(
+        "vtd_baseline.ops.cc_kernels")
     plain1 = time_ms(lambda: neighbor_min_sweeps_plain(fg, lbl, iters))
-    kern1 = time_ms(lambda: neighbor_min_sweeps(fg, lbl, iters), reps=100)
-    kern2 = time_ms(lambda: neighbor_min_sweeps(fg, lbl, iters), reps=100)
+    order = ["new", "new"] if base is None else ["base", "new", "new", "base"]
+    reads = {"new": [], "base": []}
+    for who in order:
+        reads[who].append(sweeps_times(
+            torch, cc_kernels if who == "new" else base, fg, lbl, iters))
     plain2 = time_ms(lambda: neighbor_min_sweeps_plain(fg, lbl, iters))
-    kernel_ms = (kern1 + kern2) / 2
+    mean = {k: sum(r[k] for r in reads["new"]) / len(reads["new"])
+            for k in reads["new"][0]}
+    # one sweep on the same grid of blocks: what loading and storing the
+    # windows (and the launch) cost, the rest being the sweeps
+    plan = sweep_plan(MAP, MAP, iters)
+    one = sweep_plan(MAP, MAP, 1)
+    if (one.grid_rows, one.grid_cols) != (plan.grid_rows, plan.grid_cols):
+        raise AssertionError(f"iters=1 plan {one} has another grid")
+    one_us = graph_us(torch, lambda: neighbor_min_sweeps(fg, lbl, 1))
     plain_ms = (plain1 + plain2) / 2
     # the function reads the mask (1 B) and labels (4 B) and writes labels
     # (4 B) once per cell whatever iters is; 9 mins per cell per sweep
     cells = B * MAP * MAP
     bound_bytes_ms = cells * 9 / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = cells * 9 * iters / FP32_OPS_PER_S * 1e3
-    print(f"neighbor_min_sweeps per launch [{B}x{MAP}x{MAP}], iters={iters}: "
-          f"kernel {kern1:.4f}/{kern2:.4f} ms; plain {plain1:.4f}/"
-          f"{plain2:.4f} ms; bound "
+
+    def show(r):
+        return ("/".join(f"{x['device_us']:.3f}" for x in r) + " us device, "
+                + "/".join(f"{x['host_us']:.3f}" for x in r) + " us host, "
+                + "/".join(f"{x['ms'] * 1e3:.3f}" for x in r)
+                + " us per call in a loop of calls")
+
+    print(f"neighbor_min_sweeps per wrapper call [{B}x{MAP}x{MAP}], "
+          f"iters={iters} ({plan.launches} CUDA launch, {plan.tile}x"
+          f"{plan.tile} tiles, halo {plan.halo}, "
+          f"{plan.grid_rows * plan.grid_cols * B} blocks): "
+          f"{show(reads['new'])}; at iters=1 on the same blocks {one_us:.3f} "
+          f"us device, so {(mean['device_us'] - one_us) / (iters - 1):.3f} us "
+          f"a further sweep; plain {plain1:.4f}/{plain2:.4f} ms; bound "
           f"{max(bound_bytes_ms, bound_ops_ms) * 1e3:.2f} us")
+    if base is not None:
+        print(f"baseline {baseline}: neighbor_min_sweeps {show(reads['base'])}"
+              f" (order {', '.join(order)})")
     results["neighbor_min_sweeps"] = {
         "name": "neighbor_min_sweeps",
         "route": "cuda",
         "source": "vtd_tpu_torch/csrc/neighbor_min_sweeps.cu",
         "replaces": "vtd_tpu/ops/pallas_kernels.py:55",
         "max_abs_err": max_diff,
-        "ms": kernel_ms,
+        "ms": mean["ms"],
+        "device_us": mean["device_us"],
+        "host_us": mean["host_us"],
+        "device_us_iters1": one_us,
         "plain_ms": plain_ms,
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
+        **({} if base is None else {"baseline": {
+            k: sum(r[k] for r in reads["base"]) / len(reads["base"])
+            for k in mean}}),
     }
 
 
-def dense_phase(torch, np, results):
+def dense_phase(torch, np, results, baseline=None):
     """The dense labelling path, the only path of neighbor_min_sweeps:
     ``connected_components(backend="pallas")`` on the card against the same
-    call on the CPU, with its launches counted."""
+    call on the CPU, with its wrapper calls and CUDA launches counted; its
+    time per call in a loop of calls and on the device (CUDA graph), and
+    the baseline checkout's beside it where one is given."""
     from vtd_tpu_torch.ops.cc_kernels import neighbor_min_sweeps
     from vtd_tpu_torch.ops.db_postprocess import connected_components
 
@@ -402,9 +508,11 @@ def dense_phase(torch, np, results):
     maps = np.stack([cases[i % len(cases)][1][i] for i in range(B)])
     fg = torch.from_numpy(maps).cuda()
     neighbor_min_sweeps.launches = 0
+    neighbor_min_sweeps.cuda_launches = 0
     got = connected_components(fg, backend="pallas")
     torch.cuda.synchronize()
     launches = neighbor_min_sweeps.launches
+    cuda_launches = neighbor_min_sweeps.cuda_launches
     want = connected_components(fg.cpu(), backend="pallas")
     if got.shape != (B, MAP * MAP) or got.dtype != torch.int32:
         raise AssertionError(f"dense labels malformed: {got.shape} {got.dtype}")
@@ -413,18 +521,42 @@ def dense_phase(torch, np, results):
             "connected_components(backend='pallas') on the card differs "
             "from the CPU's"
         )
-    if launches != 4:
+    if launches != 4 or cuda_launches != 4:
         raise AssertionError(
-            f"neighbor_min_sweeps launched {launches} times on the dense "
-            f"path; jump_rounds=4 needs 4"
+            f"neighbor_min_sweeps: {launches} wrapper calls, {cuda_launches} "
+            f"CUDA launches on the dense path; jump_rounds=4 at iters=8 "
+            f"needs 4 of each"
         )
     record_launches(results, "neighbor_min_sweeps", "launches", launches)
-    ms = time_ms(lambda: connected_components(fg, backend="pallas"))
+    record_launches(results, "neighbor_min_sweeps", "cuda_launches",
+                    cuda_launches)
+
+    def dense():
+        return connected_components(fg, backend="pallas")
+
+    ms = time_ms(dense)
+    device_us = graph_us(torch, dense, rounds=10)
     scan_ms = time_ms(lambda: connected_components(fg))
-    print(f"dense path: connected_components(backend='pallas') on "
-          f"[{B}x{MAP}x{MAP}] equals the CPU's label for label, {launches} "
-          f"kernel launches; {ms:.4f} ms per call (scan backend on the same "
-          f"maps {scan_ms:.4f} ms)")
+    line = (f"dense path: connected_components(backend='pallas') on "
+            f"[{B}x{MAP}x{MAP}] equals the CPU's label for label, {launches} "
+            f"wrapper calls = {cuda_launches} CUDA launches; {ms:.4f} ms per "
+            f"call in a loop of calls, {device_us:.3f} us device time per "
+            f"call (CUDA graph of 10 calls); scan backend on the same maps "
+            f"{scan_ms:.4f} ms")
+    if baseline is not None:
+        old = importlib.import_module("vtd_baseline.ops.db_postprocess")
+
+        def old_dense():
+            return old.connected_components(fg, backend="pallas")
+
+        if not torch.equal(old_dense(), got):
+            raise AssertionError("the baseline's dense labels differ")
+        line += (f"; baseline {baseline}: {time_ms(old_dense):.4f} ms, "
+                 f"{graph_us(torch, old_dense, rounds=10):.3f} us device, "
+                 f"then this tree again {graph_us(torch, dense, rounds=10):.3f}"
+                 f" us device")
+    results["neighbor_min_sweeps"]["dense_device_us"] = device_us
+    print(line)
 
 
 def make_batch(np, k: int):
@@ -815,6 +947,12 @@ def main(argv=None) -> int:
         help="comma-separated subset of %(default)s, for a short run while "
              "working on one phase; the default runs them all",
     )
+    parser.add_argument(
+        "--baseline", metavar="DIR",
+        help="another checkout (e.g. the parent commit unpacked with git "
+             "archive) whose neighbor_min_sweeps is timed beside this one's "
+             "in the sweeps and dense phases",
+    )
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -838,11 +976,13 @@ def main(argv=None) -> int:
         print(f"--- nvcc {name}.cu\n{log.strip()}")
     print(card)
 
+    if args.baseline:
+        load_baseline(args.baseline)
     results: dict = {}
     run = {
         "segmented": lambda: segmented_phase(torch, np, results),
-        "sweeps": lambda: sweeps_phase(torch, np, results),
-        "dense": lambda: dense_phase(torch, np, results),
+        "sweeps": lambda: sweeps_phase(torch, np, results, args.baseline),
+        "dense": lambda: dense_phase(torch, np, results, args.baseline),
         "crnn": lambda: pipeline_phase(torch, np, card, results),
         "trocr": lambda: trocr_phase(torch, np, card, results),
     }

@@ -11,7 +11,8 @@ same labels, label for label.
 ``neighbor_min_sweeps`` is the port of the TPU kernel
 ``vtd_tpu/ops/pallas_kernels.py:neighbor_min_sweeps`` (kernel body
 ``_sweep_kernel``): ``iters`` Jacobi sweeps of the 8-neighbour minimum.
-CUDA tensors launch ``csrc/neighbor_min_sweeps.cu``; CPU tensors run
+CUDA tensors launch ``csrc/neighbor_min_sweeps.cu`` (design and bound in
+the note there; launch plan ``sweep_plan``); CPU tensors run
 ``neighbor_min_sweeps_plain``.
 """
 from __future__ import annotations
@@ -298,25 +299,81 @@ def neighbor_min_sweeps_plain(
     return lbl
 
 
-_SWEEP_TILE = 32  # kTile of csrc/neighbor_min_sweeps.cu
+# The sweeps kernel's geometry (csrc/neighbor_min_sweeps.cu): a block holds
+# a 96x96 window in registers; it passes through shared memory (int32
+# labels and a byte mask a cell) on its way in and out, beside each of its
+# 8 warps' first and last row for two sweep parities.
+_SWEEP_WIN = 96
+_SWEEP_SMEM = _SWEEP_WIN * _SWEEP_WIN * 5 + 2 * 8 * 2 * _SWEEP_WIN * 4
+# Most sweeps one launch runs: at halo h a window carries 96^2/(96-2h)^2 of
+# its tile's work per sweep, 1.44x at 8 and 2.25x at 16, so a larger
+# ``iters`` takes more launches rather than a wider halo.
+_SWEEP_CAP = 8
+_MAX_GRID_YZ = 65535  # tile rows are blockIdx.y, maps blockIdx.z
 
 
-def sweep_smem_bytes(iters: int) -> int:
-    """Shared memory one block of the sweeps kernel needs: the tile plus a
-    halo of ``iters`` cells, two int32 label buffers and a byte mask."""
-    return (_SWEEP_TILE + 2 * iters) ** 2 * 9
+class SweepPlan(NamedTuple):
+    """Launch plan of ``neighbor_min_sweeps`` on [B, H, W] maps: block
+    (r, c) of map b owns output rows [r*tile, (r+1)*tile) and columns
+    [c*tile, (c+1)*tile) and loads them with a halo of ``halo`` cells;
+    launch k runs ``sweeps[k]`` = min(halo, iters - k*halo) sweeps. With
+    ``vec`` (W a multiple of 4, and then the halo too) every 4-cell group
+    of a window row lies wholly in or out of the map and of the tile, and
+    the kernel moves it with one 16-byte access. The fields are the C
+    ``Plan`` struct of ``csrc/neighbor_min_sweeps.cu``, in order."""
+
+    tile: int
+    halo: int
+    grid_cols: int
+    grid_rows: int
+    launches: int
+    smem: int
+    iters: int
+    vec: int
+
+    @property
+    def sweeps(self) -> tuple:
+        return tuple(min(self.halo, self.iters - k * self.halo)
+                     for k in range(self.launches))
+
+
+@functools.lru_cache(maxsize=64)
+def _sweep_plan(h: int, w: int, iters: int):
+    if h < 1 or w < 1:
+        raise ValueError(f"neighbor_min_sweeps needs H, W >= 1, got {h}x{w}")
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    launches = -(-iters // _SWEEP_CAP)
+    halo = -(-iters // launches)  # the least that holds, <= _SWEEP_CAP
+    vec = int(w % 4 == 0)
+    if vec:  # a multiple of 4 (as _SWEEP_CAP is), so is the tile
+        halo = -(-halo // 4) * 4
+    tile = _SWEEP_WIN - 2 * halo
+    plan = SweepPlan(tile, halo, -(-w // tile), -(-h // tile), launches,
+                     _SWEEP_SMEM, iters, vec)
+    return plan, (ctypes.c_int * len(plan))(*plan)
+
+
+def sweep_plan(h: int, w: int, iters: int) -> SweepPlan:
+    """The launch plan of ``iters`` sweeps over [*, h, w] maps."""
+    return _sweep_plan(int(h), int(w), int(iters))[0]
+
+
+_sweeps_fn = None
 
 
 def _sweeps_kernel():
-    from .._build import load
+    global _sweeps_fn
+    if _sweeps_fn is None:  # first use: build, load, declare the C signature
+        from .._build import load
 
-    fn = load("neighbor_min_sweeps").vtd_neighbor_min_sweeps
-    if fn.argtypes is None:  # first use: declare the C signature
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p
+        fn = load("neighbor_min_sweeps").vtd_neighbor_min_sweeps
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
-    return fn
+        _sweeps_fn = fn
+    return _sweeps_fn
 
 
 def neighbor_min_sweeps(
@@ -328,42 +385,58 @@ def neighbor_min_sweeps(
     int32: foreground cells take the minimum label of their foreground
     3x3 window (self included) ``iters`` times over, background cells
     keep theirs. CUDA tensors launch the kernel (contiguous inputs
-    required); CPU tensors take the plain twin.
+    required); CPU tensors take the plain twin. Any ``iters`` >= 1: one
+    CUDA launch runs at most 8 sweeps, and a larger ``iters`` is split
+    into ``ceil(iters / 8)`` launches of the same kernel (see
+    ``sweep_plan``), which gives the labels one launch would. An empty
+    batch (B, H or W = 0) returns an empty tensor without a launch. Past
+    the kernel's grid (B > 65535, more than 65535 tiles down a map, or
+    B*H*W >= 2^31) it raises ``ValueError`` before anything is allocated
+    or launched.
     """
     _check(binary, labels)
     iters = int(iters)
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
-    if binary.device.type == "cpu":
+    dev = binary.device
+    if dev.type == "cpu":
         return neighbor_min_sweeps_plain(binary, labels, iters)
-    if binary.device.type != "cuda":
-        raise ValueError(f"unsupported device {binary.device}")
+    b, h, w = binary.shape
+    if b * h * w == 0:
+        return torch.empty_like(labels)
+    plan, cplan = _sweep_plan(h, w, iters)
+    if b * h * w >= 2 ** 31 or max(b, plan.grid_rows) > _MAX_GRID_YZ:
+        raise ValueError(
+            f"batch {b}x{h}x{w} too large for int32 labels or the sweeps "
+            f"kernel's grid (B <= {_MAX_GRID_YZ}, H <= "
+            f"{_MAX_GRID_YZ * plan.tile} at iters={iters})"
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not (binary.is_contiguous() and labels.is_contiguous()):
         raise ValueError("neighbor_min_sweeps needs contiguous tensors")
-    if sweep_smem_bytes(iters) > _SMEM_LIMIT:
-        raise ValueError(
-            f"iters={iters} needs {sweep_smem_bytes(iters)} B of shared "
-            f"memory per block, over the {_SMEM_LIMIT} B a block can have; "
-            f"split the sweeps over several calls"
-        )
-    b, h, w = binary.shape
-    if b * h * w >= 2 ** 31 or b > 65535 or h > 65535 * _SWEEP_TILE:
-        raise ValueError("batch too large for the sweeps kernel's grid")
+    fn = _sweeps_kernel()
     out = torch.empty_like(labels)
-    stream = torch.cuda.current_stream(binary.device).cuda_stream
-    with torch.cuda.device(binary.device):
-        err = _sweeps_kernel()(
-            binary.data_ptr(), labels.data_ptr(), out.data_ptr(),
-            b, h, w, iters, stream,
-        )
+    spare = torch.empty_like(labels) if plan.launches > 1 else None
+    args = (binary.data_ptr(), labels.data_ptr(), out.data_ptr(),
+            None if spare is None else spare.data_ptr(), b, h, w, cplan)
+    # the raw stream pointer, as segmented_cc_round takes it
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(
             f"neighbor_min_sweeps launch failed: CUDA error {err}"
         )
     with _count_lock:
         neighbor_min_sweeps.launches += 1
+        neighbor_min_sweeps.cuda_launches += plan.launches
     return out
 
 
-# Launches of the CUDA kernel (CPU calls do not count).
+# Wrapper calls that launched the CUDA kernel (CPU calls do not count), and
+# the CUDA launches they made: ceil(iters / 8) a call.
 neighbor_min_sweeps.launches = 0
+neighbor_min_sweeps.cuda_launches = 0
