@@ -33,7 +33,24 @@ any error:
   trocr      drive the TrOCR engine through ``VideoTextPipeline`` at full
              width (default TrOCRConfig: 384x384, encoder 768x12, decoder
              1024x12, 50 steps, bf16), check the model's numerics, count
-             crops recognised and kernel launches, print stage times.
+             crops recognised and kernel launches, print stage times;
+  trained    restore the repo's trained checkpoints (``models/``) with the
+             port's own OCDBT reader, run the CRNN path at config 3's
+             settings (batch 16, 64 slots, ``host_downscale=640``, I420,
+             bf16) on 16 copies of the frame shipped in
+             ``tests/torch_data/verify_frames.npz``, require the JAX
+             package's stored transcripts (HELLO, WORLD, 123) and boxes,
+             print the stage line with this real detection load and the
+             kernel launches; the same for the trained TrOCR;
+  engine     ``InferenceEngine`` on the trained CRNN pipeline: three
+             streams through ``submit_batch`` (the shipped frame and
+             ``make_batch`` frames) and one frame by frame through
+             ``submit_frame``; every Future equals ``process_batch`` on
+             the same frames; aggregate frames/s and batches dispatched;
+  beam       build the C++ CTC prefix beam with g++, hold it against the
+             plain Python beam on the trained CRNN's log-probs of the
+             ``trained`` batch and on seeded random log-probs (sequences
+             equal, scores within 1e-4), and time it.
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -571,7 +588,7 @@ def make_batch(np, k: int):
     return np.concatenate([y, uv], axis=1)
 
 
-def stage_times(torch, pipe, frames, prob, card):
+def stage_times(torch, pipe, frames, prob, card, label: str = ""):
     """Median wall time of each stage of one batch, host clock around
     work that ends in a synchronise (the labelling waits on the device
     inside postprocess anyway)."""
@@ -581,11 +598,17 @@ def stage_times(torch, pipe, frames, prob, card):
     from vtd_tpu_torch.ops.preprocess import yuv420_to_bgr
 
     bgr = yuv420_to_bgr(frames)
-    post = db_postprocess(prob, 0.5, max_dets=64, max_box_frac=1.0)
+    frac = pipe.max_box_frac
+    post = db_postprocess(prob, 0.5, max_dets=64, max_box_frac=frac)
     budget = pipe._effective_rec_budget(B)
+    h, w = bgr.shape[1:3]
+    size = pipe.detector.input_size
+    scale = torch.tensor([w / size, h / size, w / size, h / size],
+                         device=bgr.device)
 
     def crop_recognize():
-        crops = crop_and_resize_boxes_mm(bgr, post["boxes"], post["valid"])
+        crops = crop_and_resize_boxes_mm(bgr, post["boxes"] * scale,
+                                         post["valid"])
         crops = crops.reshape(-1, 32, 128, 3)[:budget]
         return ctc_greedy_decode_arrays(pipe.recognizer.logits(crops))
 
@@ -593,7 +616,7 @@ def stage_times(torch, pipe, frames, prob, card):
         "yuv420_to_bgr": lambda: yuv420_to_bgr(frames),
         "preprocess+dbnet": lambda: pipe.detector.probability(frames),
         "db_postprocess": lambda: db_postprocess(
-            prob, 0.5, max_dets=64, max_box_frac=1.0),
+            prob, 0.5, max_dets=64, max_box_frac=frac),
         "crop+crnn+ctc": crop_recognize,
         "whole batch": lambda: pipe._run_batch(
             frames, 0.5, torch.ones(B, dtype=torch.bool, device="cuda"),
@@ -609,11 +632,12 @@ def stage_times(torch, pipe, frames, prob, card):
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3)
         out.append(f"{name} {sorted(runs)[2]:.3f}")
-    print(f"stage ms per {B}-frame batch (median of 5): " + ", ".join(out)
-          + f" ({card})")
+    n_valid = int(post["valid"].sum())
+    print(f"stage ms per {B}-frame batch ({label}{n_valid} valid boxes, "
+          f"median of 5): " + ", ".join(out) + f" ({card})")
 
 
-def check_results(outs) -> int:
+def check_results_sized(outs, w: int, h: int) -> int:
     """The pipeline's result schema over a list of batches; returns the
     number of detections."""
     n_det = 0
@@ -626,7 +650,7 @@ def check_results(outs) -> int:
                               "recognition_confidence", "polygon"}:
                     raise AssertionError(f"malformed detection {d}")
                 x1, y1, x2, y2 = d["bbox"]
-                if not (0 <= x1 <= x2 <= 640 and 0 <= y1 <= y2 <= 360):
+                if not (0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h):
                     raise AssertionError(f"bbox out of frame {d['bbox']}")
                 for c in ("detection_confidence", "recognition_confidence"):
                     if not 0.0 <= d[c] <= 1.0:
@@ -714,7 +738,7 @@ def trocr_numerics(torch, pipe):
           f"on the card max logit diff {err_full:.4f} (max |logit| {scale:.3f})")
 
 
-def trocr_stage_times(torch, pipe, frames, card):
+def trocr_stage_times(torch, pipe, frames, card, label: str = ""):
     """Median wall time of the TrOCR path's stages (host clock around
     synchronised work), one chunk = ``rec_chunk`` crops."""
     from vtd_tpu_torch.models.trocr import greedy_decode
@@ -730,11 +754,15 @@ def trocr_stage_times(torch, pipe, frames, card):
     def detect():
         state["bgr"] = yuv420_to_bgr(frames)
         prob = pipe.detector.probability(state["bgr"])
-        state["post"] = db_postprocess(prob, 0.5, max_dets=64, max_box_frac=1.0)
+        state["post"] = db_postprocess(prob, 0.5, max_dets=64,
+                                       max_box_frac=pipe.max_box_frac)
 
     def crop():
         post, bgr = state["post"], state["bgr"]
-        scale = torch.tensor([1.0, 360 / 640, 1.0, 360 / 640], device="cuda")
+        h, w = bgr.shape[1:3]
+        size = pipe.detector.input_size
+        scale = torch.tensor([w / size, h / size, w / size, h / size],
+                             device="cuda")
         crops = crop_and_resize_boxes_mm(
             bgr, post["boxes"] * scale, post["valid"], out_h=out_h, out_w=out_w)
         crops = ((crops.flip(-1) - 0.5) / 0.5).to(tr.cfg.dtype)
@@ -755,7 +783,8 @@ def trocr_stage_times(torch, pipe, frames, card):
         ]
         out = [f"{name} {median_ms(torch, fn, runs):.3f}"
                for name, fn, runs in parts]
-    print("TrOCR path stage ms (median): " + ", ".join(out) + f" ({card})")
+    print(f"TrOCR path stage ms ({label}median): " + ", ".join(out)
+          + f" ({card})")
 
 
 def trocr_phase(torch, np, card, results):
@@ -798,21 +827,9 @@ def trocr_phase(torch, np, card, results):
     torch.cuda.synchronize()
 
     chunks.clear()
-    segmented_cc_round.launches = 0
-    segmented_cc_round.cuda_launches = 0
-    neighbor_min_sweeps.launches = 0
-    t0 = time.perf_counter()
-    handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
-    outs = []
-    for k in range(N_TROCR_BATCHES):
-        nxt = (
-            pipe.dispatch_batch(batches[k + 1], valid_frames=valid)
-            if k + 1 < N_TROCR_BATCHES else None
-        )
-        outs.append(pipe.process_batch(batches[k], valid, handles=handles))
-        handles = nxt
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    reset_counts()
+    outs, elapsed = run_pipelined(
+        torch, pipe, [(b, valid, None) for b in batches])
     launches = segmented_cc_round.launches
     cuda_launches = segmented_cc_round.cuda_launches
     if launches < 3 * N_TROCR_BATCHES:
@@ -826,7 +843,7 @@ def trocr_phase(torch, np, card, results):
                     cuda_launches)
     record_launches(results, "neighbor_min_sweeps", "launches_trocr_path",
                     neighbor_min_sweeps.launches)
-    n_det = check_results(outs)
+    n_det = check_results_sized(outs, 640, 360)
     n_crops = sum(chunks)
     if n_crops != n_det or n_crops == 0:
         raise AssertionError(
@@ -861,21 +878,9 @@ def pipeline_phase(torch, np, card, results):
     pipe.process_batch(batches[0], valid)  # warm-up: cuDNN plans, build
     torch.cuda.synchronize()
 
-    segmented_cc_round.launches = 0
-    segmented_cc_round.cuda_launches = 0
-    neighbor_min_sweeps.launches = 0
-    t0 = time.perf_counter()
-    handles = pipe.dispatch_batch(batches[0], valid_frames=valid)
-    outs = []
-    for k in range(N_BATCHES):
-        nxt = (
-            pipe.dispatch_batch(batches[k + 1], valid_frames=valid)
-            if k + 1 < N_BATCHES else None
-        )
-        outs.append(pipe.process_batch(batches[k], valid, handles=handles))
-        handles = nxt
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    reset_counts()
+    outs, elapsed = run_pipelined(
+        torch, pipe, [(b, valid, None) for b in batches])
     launches = segmented_cc_round.launches
     if launches < 3 * N_BATCHES:
         raise AssertionError(
@@ -890,7 +895,7 @@ def pipeline_phase(torch, np, card, results):
     record_launches(results, "neighbor_min_sweeps", "launches_crnn_path",
                     neighbor_min_sweeps.launches)
 
-    n_det = check_results(outs)
+    n_det = check_results_sized(outs, 640, 360)
 
     t1 = time.perf_counter()
     pipe.process_batch(batches[1], valid)
@@ -935,7 +940,315 @@ def pipeline_phase(torch, np, card, results):
                   f"{int(v.sum())} valid slots equal, boxes within {err} px")
 
 
-PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr")
+TRUTH = ("HELLO", "WORLD", "123")
+VERIFY_NPZ = "tests/torch_data/verify_frames.npz"
+CHECKPOINTS = {
+    "detector": "models/text_detector",
+    "crnn": "models/text_recognizer",
+    "trocr": "models/text_recognizer_trocr",
+}
+BOX_TOL_PX = 2  # trained boxes against the JAX package's, per coordinate
+DET_CONF_TOL = 0.01
+REC_CONF_TOL = 0.05  # bf16 CRNN on the card against the reference's
+
+
+def verify_frames(np):
+    """The shipped frame (I420, 640x640) and the JAX package's reading of
+    it (``tests/torch_data/make_verify_frames.py``)."""
+    data = np.load(VERIFY_NPZ)
+    return {k: data[k] for k in data.files}
+
+
+def trained_pipeline(state, engine: str):
+    """The trained pipeline at config 3's settings, built once per call of
+    the script (the ``trained``, ``engine`` and ``beam`` phases share
+    it)."""
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+
+    key = f"pipe_{engine}"
+    if key not in state:
+        state[key] = VideoTextPipeline(
+            detector_path=CHECKPOINTS["detector"],
+            recognizer_path=CHECKPOINTS[engine],
+            use_transformer_ocr=engine == "trocr", device="cuda",
+            batch_size=B, max_dets=64, host_downscale=640,
+            transfer_format="yuv420",
+        )
+    return state[key]
+
+
+def check_against_reference(per_frame, ref, engine: str):
+    """Each frame's detections against the JAX package's stored ones:
+    transcripts equal (the set must be TRUTH), boxes within BOX_TOL_PX,
+    confidences within their tolerances. Returns the largest errors."""
+    import numpy as np
+
+    texts = [str(t) for t in ref[f"{engine}_texts"]]
+    if sorted(texts) != sorted(TRUTH):
+        raise AssertionError(f"stored {engine} transcripts {texts}")
+    want = {
+        t: (ref[f"{engine}_boxes"][i], ref[f"{engine}_det_conf"][i],
+            ref[f"{engine}_rec_conf"][i])
+        for i, t in enumerate(texts)
+    }
+    err = {"box_px": 0.0, "det_conf": 0.0, "rec_conf": 0.0}
+    for f, dets in enumerate(per_frame):
+        got = sorted(d["text"] for d in dets)
+        if got != sorted(texts):
+            raise AssertionError(
+                f"{engine} frame {f}: read {got}, the JAX package {texts}")
+        for d in dets:
+            box, det_conf, rec_conf = want[d["text"]]
+            err["box_px"] = max(err["box_px"], float(
+                np.abs(np.asarray(d["bbox"]) - box).max()))
+            err["det_conf"] = max(err["det_conf"], abs(
+                d["detection_confidence"] - float(det_conf)))
+            err["rec_conf"] = max(err["rec_conf"], abs(
+                d["recognition_confidence"] - float(rec_conf)))
+    if not (err["box_px"] <= BOX_TOL_PX and err["det_conf"] <= DET_CONF_TOL
+            and err["rec_conf"] <= REC_CONF_TOL):
+        raise AssertionError(f"{engine} detections off the reference: {err}")
+    return err
+
+
+def run_pipelined(torch, pipe, plan):
+    """Dispatch batch k+1 before collecting batch k over ``plan``, a list
+    of (frames, valid, orig_size); returns the results and the wall
+    time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = pipe.dispatch_batch(plan[0][0], valid_frames=plan[0][1])
+    outs = []
+    for k, (frames, valid, orig) in enumerate(plan):
+        nxt = (
+            pipe.dispatch_batch(plan[k + 1][0], valid_frames=plan[k + 1][1])
+            if k + 1 < len(plan) else None
+        )
+        outs.append(pipe.process_batch(frames, valid, handles=handles,
+                                       orig_size=orig))
+        handles = nxt
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def reset_counts():
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, segmented_cc_round,
+    )
+
+    segmented_cc_round.launches = 0
+    segmented_cc_round.cuda_launches = 0
+    neighbor_min_sweeps.launches = 0
+    neighbor_min_sweeps.cuda_launches = 0
+
+
+def record_path(results, path: str) -> tuple:
+    """Both kernels' counts since :func:`reset_counts`, into the kernels
+    line under ``path``; returns the labelling kernel's (calls, CUDA
+    launches)."""
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, segmented_cc_round,
+    )
+
+    calls, cuda = segmented_cc_round.launches, segmented_cc_round.cuda_launches
+    record_launches(results, "segmented_cc_round", f"launches_{path}", calls)
+    record_launches(results, "segmented_cc_round", f"cuda_launches_{path}",
+                    cuda)
+    record_launches(results, "neighbor_min_sweeps", f"launches_{path}",
+                    neighbor_min_sweeps.launches)
+    return calls, cuda
+
+
+def trained_phase(torch, np, card, results, state):
+    """The repo's trained checkpoints on the card: restore with the
+    port's reader, the CRNN and TrOCR paths at config 3's settings on the
+    shipped frame, results against the JAX package's."""
+    from vtd_tpu_torch.train.checkpoint import restore_variables
+
+    for name, path in CHECKPOINTS.items():
+        t0 = time.perf_counter()
+        tree = restore_variables(path)
+        secs = time.perf_counter() - t0
+        n = 0
+        stack = [tree]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, dict):
+                stack.extend(node.values())
+            else:
+                n += int(node.size)
+        print(f"restore {path}: {secs:.3f} s, {n / 1e6:.2f} M values "
+              f"(port's OCDBT reader, libzstd)")
+    ref = verify_frames(np)
+    frames = np.stack([ref["frame_i420"]] * B)
+    valid = np.ones(B, bool)
+    for engine in ("crnn", "trocr"):
+        t0 = time.perf_counter()
+        pipe = trained_pipeline(state, engine)
+        print(f"trained {engine} pipeline built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        pipe.process_batch(frames, valid)  # warm-up
+        reset_counts()
+        outs, elapsed = run_pipelined(
+            torch, pipe, [(frames, valid, None)] * N_BATCHES)
+        calls, cuda = record_path(results, f"trained_{engine}_path")
+        if calls < 3 * N_BATCHES:
+            raise AssertionError(
+                f"segmented_cc_round launched {calls} times over "
+                f"{N_BATCHES} trained {engine} batches")
+        n_det = check_results_sized(outs, 640, 640)
+        errs = [check_against_reference(o, ref, engine) for o in outs]
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        print(f"trained {engine} path: {N_BATCHES} pipelined batches x {B} "
+              f"frames, {n_det} detections, every frame reads "
+              f"{sorted(TRUTH)} as the JAX package does; largest "
+              f"differences: box {worst['box_px']} px, detection confidence "
+              f"{worst['det_conf']:.5f}, recognition confidence "
+              f"{worst['rec_conf']:.5f}; {calls} segmented_cc_round calls "
+              f"({cuda} CUDA launches)")
+        print(f"trained {engine} throughput {B * N_BATCHES / elapsed:.3f} "
+              f"frames/s pipelined ({card})")
+        frames_dev = torch.from_numpy(frames).cuda()
+        with torch.inference_mode():
+            if engine == "crnn":
+                prob = pipe.detector.probability(frames_dev)
+                stage_times(torch, pipe, frames_dev, prob, card,
+                            label="trained weights, ")
+            else:
+                trocr_stage_times(torch, pipe, frames_dev, card,
+                                  label="trained weights, ")
+
+
+def engine_phase(torch, np, card, results, state):
+    """InferenceEngine on the trained CRNN pipeline: three streams of
+    stacked batches and one of single frames, every Future against
+    process_batch on the same frames."""
+    from vtd_tpu_torch.runtime import InferenceEngine
+
+    pipe = trained_pipeline(state, "crnn")
+    ref = verify_frames(np)
+    valid = np.ones(B, bool)
+    shipped = np.stack([ref["frame_i420"]] * B)
+    streams = [
+        [shipped] * 3,
+        [make_batch(np, k) for k in range(3)],
+        [make_batch(np, k) for k in range(3, 6)],
+    ]
+    part = valid.copy()
+    part[B // 2:] = False  # a stream's last, partly filled batch
+    masks = [[valid, valid, valid], [valid, valid, part],
+             [valid, valid, valid]]
+    orig = [(640, 640), (360, 640), (360, 640)]
+    single = [make_batch(np, 7)[i] for i in range(B)]  # one stream, framewise
+    pipe.process_batch(streams[1][0], valid)  # warm-up at this shape
+    want = [[pipe.process_batch(b, m, orig_size=o) for b, m in zip(s, ms)]
+            for s, ms, o in zip(streams, masks, orig)]
+    want_single = pipe.process_batch(np.stack(single), valid,
+                                     orig_size=(360, 640))
+    torch.cuda.synchronize()
+
+    # the single frames go in first, so that the scheduler takes all 16
+    # into one bucket before it dispatches a stacked batch
+    engine = InferenceEngine(pipeline=pipe)
+    reset_counts()
+    t0 = time.perf_counter()
+    single_futs = [engine.submit_frame(f, orig_size=(360, 640))
+                   for f in single]
+    futs = [[engine.submit_batch(b, m, orig_size=o) for b, m in zip(s, ms)]
+            for s, ms, o in zip(streams, masks, orig)]
+    got = [[f.result(timeout=300) for f in fs] for fs in futs]
+    got_single = [f.result(timeout=300) for f in single_futs]
+    elapsed = time.perf_counter() - t0
+    dispatched = engine.batches_dispatched
+    engine.close()
+    calls, cuda = record_path(results, "engine_path")
+    n_frames = sum(int(m.sum()) for ms in masks for m in ms) + len(single)
+    for s, (g, w, ms) in enumerate(zip(got, want, masks)):
+        for k, (gb, wb, m) in enumerate(zip(g, w, ms)):
+            if [gb[i] for i in np.nonzero(m)[0]] != [
+                    wb[i] for i in np.nonzero(m)[0]]:
+                raise AssertionError(
+                    f"engine stream {s} batch {k} differs from process_batch")
+    if got_single != want_single:
+        raise AssertionError("engine submit_frame results differ from "
+                             "process_batch")
+    if dispatched != 3 * 3 + 1:
+        raise AssertionError(f"{dispatched} batches dispatched, expected 10")
+    n_det = sum(len(d) for g in got for b in g for d in b) + sum(
+        len(d) for d in got_single)
+    print(f"engine: 3 streams via submit_batch + 1 via submit_frame, "
+          f"{n_frames} frames, {dispatched} batches dispatched, {n_det} "
+          f"detections, every Future equal to process_batch; "
+          f"{calls} segmented_cc_round calls ({cuda} CUDA launches)")
+    # the same 10 batches straight through the pipeline, pipelined
+    plan = [(np.stack(single), valid, (360, 640))] + [
+        (b, m, o) for s, ms, o in zip(streams, masks, orig)
+        for b, m in zip(s, ms)]
+    _, direct = run_pipelined(torch, pipe, plan)
+    print(f"engine aggregate {n_frames / elapsed:.3f} frames/s over "
+          f"{elapsed * 1e3:.3f} ms; the same batches straight through the "
+          f"pipeline (dispatch k+1, then collect k) {n_frames / direct:.3f} "
+          f"frames/s (trained CRNN, bf16, {card})")
+
+
+def beam_phase(torch, np, card, state):
+    """The C++ CTC prefix beam against the plain Python beam."""
+    from vtd_tpu_torch import native
+    from vtd_tpu_torch.models.crnn import build_vocab
+    from vtd_tpu_torch.ops.crop import crop_and_resize_boxes_mm
+    from vtd_tpu_torch.ops.db_postprocess import db_postprocess
+    from vtd_tpu_torch.ops.preprocess import yuv420_to_bgr
+    from vtd_tpu_torch.runtime import TextRecognizer
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"built {lib.name} with g++ in {time.perf_counter() - t0:.1f} s")
+    pipe = trained_pipeline(state, "crnn")
+    ref = verify_frames(np)
+    frames = torch.from_numpy(np.stack([ref["frame_i420"]] * B)).cuda()
+    with torch.inference_mode():
+        bgr = yuv420_to_bgr(frames)
+        post = db_postprocess(pipe.detector.probability(bgr), 0.5,
+                              max_dets=64, max_box_frac=pipe.max_box_frac)
+        crops = crop_and_resize_boxes_mm(bgr, post["boxes"], post["valid"])
+        crops = crops[post["valid"]]
+        trained_lp = pipe.recognizer.log_probs(crops).cpu().numpy()
+    v = len(build_vocab())
+    gen = np.random.default_rng(6)
+    logits = gen.normal(0.0, 3.0, (64, 32, v)).astype(np.float32)
+    random_lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    out = []
+    for name, lp in (("trained CRNN", trained_lp),
+                     ("seeded random", random_lp.astype(np.float32))):
+        seqs, scores = native.ctc_beam_decode(lp, beam_width=8)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            native.ctc_beam_decode(lp, beam_width=8)
+        ms = (time.perf_counter() - t0) / 10 * 1e3
+        t0 = time.perf_counter()
+        pseqs, pscores = native.ctc_beam_decode_plain(lp, beam_width=8)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if seqs != pseqs:
+            raise AssertionError(f"beam sequences differ on {name} log-probs")
+        err = float(np.abs(scores - pscores).max())
+        if not err <= 1e-4:
+            raise AssertionError(f"beam scores differ by {err} on {name}")
+        out.append(f"{name} [{lp.shape[0]}, {lp.shape[1]}, {lp.shape[2]}]: "
+                   f"{ms:.3f} ms per batch (plain Python {plain_ms:.3f} ms), "
+                   f"scores within {err:.2e}")
+    rec = TextRecognizer(CHECKPOINTS["crnn"], decoder="beam", beam_width=8,
+                         pad_batch=128, device="cuda")
+    texts, confs = rec.recognize_crops_device(crops)
+    if sorted(texts) != sorted(TRUTH * B):
+        raise AssertionError(f"beam decoder read {sorted(set(texts))}")
+    print("C++ beam equals the plain beam (sequences equal): "
+          + "; ".join(out) + f"; TextRecognizer(decoder='beam') reads "
+          f"{sorted(set(texts))} on the {len(texts)} trained crops "
+          f"({card})")
+
+
+PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
+          "engine", "beam")
 
 
 def main(argv=None) -> int:
@@ -979,12 +1292,16 @@ def main(argv=None) -> int:
     if args.baseline:
         load_baseline(args.baseline)
     results: dict = {}
+    state: dict = {}  # pipelines shared by the trained-weights phases
     run = {
         "segmented": lambda: segmented_phase(torch, np, results),
         "sweeps": lambda: sweeps_phase(torch, np, results, args.baseline),
         "dense": lambda: dense_phase(torch, np, results, args.baseline),
         "crnn": lambda: pipeline_phase(torch, np, card, results),
         "trocr": lambda: trocr_phase(torch, np, card, results),
+        "trained": lambda: trained_phase(torch, np, card, results, state),
+        "engine": lambda: engine_phase(torch, np, card, results, state),
+        "beam": lambda: beam_phase(torch, np, card, state),
     }
     for name in PHASES:
         if name in phases:

@@ -110,8 +110,12 @@ def test_ctc_greedy_decode_matches_reference():
 def test_recognizer_rejects_later_slices():
     from vtd_tpu_torch.runtime import TextRecognizer
 
-    with pytest.raises(NotImplementedError, match="beam"):
-        TextRecognizer(decoder="beam", device="cpu")
+    # the beam decoder is ported (tests/test_torch_beam.py); an unknown
+    # decoder still raises
+    rec = TextRecognizer(decoder="beam", beam_width=4, device="cpu")
+    assert (rec.decoder, rec.beam_width) == ("beam", 4)
+    with pytest.raises(ValueError, match="decoder"):
+        TextRecognizer(decoder="viterbi", device="cpu")
     # the transformer engine is ported: the facade builds it
     from vtd_tpu_torch.models.trocr import small_config
 

@@ -343,7 +343,7 @@ def _port_files():
 
 
 def test_port_never_imports_jax():
-    banned = {"jax", "jaxlib", "flax", "orbax", "vtd_tpu"}
+    banned = {"jax", "jaxlib", "flax", "orbax", "tensorstore", "vtd_tpu"}
     files = _port_files()
     assert len(files) > 15
     for path in files:
@@ -374,7 +374,7 @@ def test_port_never_imports_jax():
         f"import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'orbax', 'vtd_tpu', 'cv2'))\n"
+        "('jax', 'flax', 'orbax', 'tensorstore', 'vtd_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

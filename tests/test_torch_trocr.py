@@ -415,10 +415,14 @@ def test_recognizer_loads_hf_layout_checkpoint(tmp_path):
     want, _ = greedy_generate(model, torch.from_numpy(g["gen_images"]))
     got, _ = rec.generate(torch.from_numpy(g["gen_images"]))
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="torch-format"):
-        TransformerRecognizer(
-            os.path.join(REPO, "models", "text_recognizer_trocr"),
-            device="cpu")
+    # the reference's orbax directory loads too (with its sidecar); a path
+    # that holds no checkpoint raises
+    orbax = TransformerRecognizer(
+        os.path.join(REPO, "models", "text_recognizer_trocr"), device="cpu")
+    assert orbax.cfg.image_size == 48
+    with pytest.raises(FileNotFoundError, match="No checkpoint"):
+        TransformerRecognizer(str(tmp_path / "absent"), config=model.cfg,
+                              device="cpu")
 
 
 def test_transformer_entry_points_default_to_cuda():

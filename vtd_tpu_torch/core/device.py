@@ -56,9 +56,3 @@ def seeded_init_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
                 m.reset_parameters()
     return module
 
-
-def load_state_dict(path: str) -> dict:
-    """A torch-format checkpoint of the port (a state dict, or a dict
-    holding one under ``model_state_dict``)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    return sd.get("model_state_dict", sd)

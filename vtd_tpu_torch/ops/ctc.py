@@ -6,7 +6,7 @@ steps, for a whole batch. Host side: strings from (ids, emit).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -49,3 +49,11 @@ def ids_to_text(ids: np.ndarray, emit: np.ndarray) -> List[str]:
         ]
         out.append("".join(c for c in chars if len(c) == 1))
     return out
+
+
+def decode_batch(logits: torch.Tensor) -> List[Tuple[str, float]]:
+    """Convenience: logits [B, T, V] -> [(text, confidence)]."""
+    arrs = ctc_greedy_decode_arrays(logits)
+    texts = ids_to_text(arrs["ids"].cpu().numpy(), arrs["emit"].cpu().numpy())
+    confs = arrs["confidence"].cpu().numpy()
+    return [(t, float(c)) for t, c in zip(texts, confs)]

@@ -152,6 +152,7 @@ def db_postprocess(
     num_angles: int = 45,
     refine_steps: int = 9,
     work_stride: int = 2,
+    stage: str = "full",
     cc_exact: bool = False,
     m_cells: int | None = None,
 ) -> Dict[str, torch.Tensor]:
@@ -160,7 +161,14 @@ def db_postprocess(
     Returns (full-resolution map coordinates; K = ``max_dets``):
       boxes [B,K,4] (x1,y1,x2,y2), polygons [B,K,4,2], scores [B,K],
       areas [B,K], valid [B,K] bool, and xmin/xmax/ymin/ymax [B,K].
+
+    ``stage`` cuts the work short for profiling, returning what the
+    reference returns there, batched: ``"cc"`` {labels [B, n]},
+    ``"topk"`` {roots, areas, valid [B, K]}, ``"boundary"`` {xs, ys,
+    pmask [B, K, M], valid}.
     """
+    if stage not in ("full", "cc", "topk", "boundary"):
+        raise ValueError(f"unknown stage {stage!r}")
     bsz, h, w = prob_maps.shape
     k = max_dets
     st = work_stride
@@ -177,6 +185,8 @@ def db_postprocess(
         .any(2)
     )
     labels = connected_components(binary, exact=cc_exact)  # [B, n]
+    if stage == "cc":
+        return {"labels": labels}
 
     # ---- full-resolution 4-boundary, folded to per-cell pixel bits ----
     hf, wf = hs * st, ws * st
@@ -232,6 +242,8 @@ def db_postprocess(
     areas = top_lens.to(f32) * (st * st)
     valid = areas >= min_area
     safe_roots = torch.where(valid, top_roots, n).to(torch.int32)
+    if stage == "topk":
+        return {"roots": safe_roots, "areas": areas, "valid": valid}
 
     # ---- per-component boundary cells -> full-res pixel coordinates ---
     if m_cells is None:
@@ -258,6 +270,8 @@ def db_postprocess(
     pmask = (cell_mask[..., None] & bnd4[bidx, cells.long()]).reshape(
         bsz, k, -1
     )
+    if stage == "boundary":
+        return {"xs": xs_c, "ys": ys_c, "pmask": pmask, "valid": valid}
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
 
     def cal_minmax(vals):
@@ -439,6 +453,14 @@ def db_postprocess(
         "xmin": mask(xmin), "xmax": mask(xmax),
         "ymin": mask(ymin), "ymax": mask(ymax),
     }
+
+
+def db_postprocess_batch(
+    prob_maps: torch.Tensor, bin_thresh: float | torch.Tensor = 0.5, **kw
+) -> Dict[str, torch.Tensor]:
+    """Batched [B, H, W] entry point of the reference's name;
+    :func:`db_postprocess` is batched already (keywords as there)."""
+    return db_postprocess(prob_maps, bin_thresh, **kw)
 
 
 def extract_detections(

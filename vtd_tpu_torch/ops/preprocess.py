@@ -11,6 +11,7 @@ import torch.nn.functional as F
 # torchvision Normalize constants
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+_INV_255 = float(torch.tensor(1 / 255, dtype=torch.float32))
 
 
 def preprocess_frames(
@@ -36,6 +37,40 @@ def preprocess_frames(
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     x = (x - mean[:, None, None]) / std[:, None, None]
     return x.to(dtype).permute(0, 2, 3, 1)
+
+
+def resize_with_padding(image: torch.Tensor, out_size: int = 640) -> torch.Tensor:
+    """One image [H, W, 3] -> [out_size, out_size, 3] in its own dtype:
+    aspect-preserving antialiased bilinear resize, centred on zeros
+    (the reference's ``resize_with_padding``; a float result is cast
+    back to an integer dtype by truncation, as ``astype`` does)."""
+    h, w = image.shape[:2]
+    scale = min(out_size / w, out_size / h)
+    nw, nh = int(w * scale), int(h * scale)
+    x = image.permute(2, 0, 1)[None].to(torch.float32)
+    x = F.interpolate(
+        x, size=(nh, nw), mode="bilinear", align_corners=False,
+        antialias=True,
+    )[0].permute(1, 2, 0)
+    top = (out_size - nh) // 2
+    left = (out_size - nw) // 2
+    out = torch.zeros(
+        (out_size, out_size, image.shape[2]), dtype=torch.float32,
+        device=image.device,
+    )
+    out[top:top + nh, left:left + nw] = x
+    return out.to(image.dtype)
+
+
+def normalize_frame(frame: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 in [0, 1] (times the float32 reciprocal of 255,
+    as the reference's compiled division is)."""
+    return frame.to(torch.float32) * _INV_255
+
+
+def denormalize_frame(frame: torch.Tensor) -> torch.Tensor:
+    """float in [0, 1] -> uint8 (scaled, clipped, truncated)."""
+    return torch.clamp(frame * 255.0, 0, 255).to(torch.uint8)
 
 
 def yuv420_to_bgr(packed: torch.Tensor) -> torch.Tensor:

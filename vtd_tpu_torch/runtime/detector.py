@@ -13,12 +13,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.device import (
-    compute_dtype, load_state_dict, resolve_device, seeded_init_,
-)
+from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.dbnet import DBNet
 from ..ops.db_postprocess import db_postprocess, extract_detections
 from ..ops.preprocess import preprocess_frames, yuv420_to_bgr
+from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
 
@@ -26,9 +25,11 @@ logger = logging.getLogger(__name__)
 class TextDetector:
     """DBNet detector with a batched device path.
 
-    ``model_path``: a torch-format state dict of the port's ``DBNet``
-    (``convert.dbnet_from_jax`` makes one from ``vtd_tpu`` weights);
-    without one, weights are drawn from ``seed``.
+    ``model_path``: what the reference's loader takes (an orbax
+    checkpoint directory, a directory or file holding a pickled
+    ``variables.pkl``, both converted with ``convert.dbnet_from_jax``),
+    or a torch-format ``.pth``/``.pt`` state dict of the port's
+    ``DBNet``; without one, weights are drawn from ``seed``.
     """
 
     def __init__(
@@ -52,7 +53,9 @@ class TextDetector:
         self.dtype = compute_dtype(self.device, dtype)
         model = DBNet()
         if model_path:
-            model.load_state_dict(load_state_dict(model_path))
+            from ..convert import dbnet_from_jax
+
+            model.load_state_dict(load_weights(model_path, dbnet_from_jax))
         else:
             seeded_init_(model, seed)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()

@@ -95,8 +95,8 @@ class VideoTextPipeline:
     ):
         if sample_mode != "stride":
             raise NotImplementedError(
-                "sample_mode='keyframe' waits for the port's multi-stream "
-                "and keyframe slice"
+                "sample_mode='keyframe' waits for the port's native libav "
+                "decode slice"
             )
         if mesh is not None or parallel_mode != "fused":
             raise NotImplementedError(
@@ -512,8 +512,8 @@ class VideoTextPipeline:
         dedup = self.temporal_dedup if temporal_dedup is None else temporal_dedup
         if sample_mode not in (None, "stride"):
             raise NotImplementedError(
-                "sample_mode='keyframe' waits for the port's multi-stream "
-                "and keyframe slice"
+                "sample_mode='keyframe' waits for the port's native libav "
+                "decode slice"
             )
         thr = (
             self.confidence_threshold

@@ -5,8 +5,9 @@ recognizers, chosen by ``use_transformer``.
 ``recognize`` / ``recognize_batch`` return ``{'text', 'confidence'}``;
 ``recognize_crops_device`` takes normalised crops that are already on
 the device ([N, 32, 128, 3] for the CRNN, [N, image_size, width, 3] for
-the transformer). The native beam decoder waits for a later slice of the
-port.
+the transformer). ``decoder="beam"`` runs the CRNN on the card, takes
+the log-softmax there and decodes on the host with the C++ prefix beam
+(``native/ctc_beam.cpp``).
 """
 from __future__ import annotations
 
@@ -16,11 +17,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.device import (
-    compute_dtype, load_state_dict, resolve_device, seeded_init_,
-)
-from ..models.crnn import CRNN, build_vocab
+from ..core.device import compute_dtype, resolve_device, seeded_init_
+from ..models.crnn import CRNN, ID_TO_CHAR, build_vocab
 from ..ops.ctc import ctc_greedy_decode_arrays, ids_to_text
+from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
 
@@ -28,25 +28,39 @@ logger = logging.getLogger(__name__)
 class TextRecognizer:
     """Facade over the CRNN and transformer recognizers.
 
-    ``model_path``: a torch-format state dict of the port's ``CRNN`` or
-    ``TrOCR`` (``convert.crnn_from_jax`` / ``convert.trocr_from_jax``
-    make one from ``vtd_tpu`` weights); without one, weights are drawn
-    from ``seed``. ``use_transformer`` defaults to False here (the
-    reference defaults to True) until serving is wired to the port.
+    ``model_path``: what the reference's loader takes (an orbax
+    checkpoint directory, a directory or file holding a pickled
+    ``variables.pkl``, both converted with ``convert.crnn_from_jax`` /
+    ``convert.trocr_from_jax``), or a torch-format ``.pth``/``.pt`` state
+    dict of the port's model; without one, weights are drawn from
+    ``seed``. ``use_transformer`` defaults to False here (the reference
+    defaults to True) until serving is wired to the port.
+
+    ``pad_batch`` is accepted for the reference's keywords and ignored:
+    it pads to XLA compile buckets, which PyTorch does not have.
+    ``decoder``: ``"greedy"`` (CTC collapse on the card) or ``"beam"``
+    (prefix beam of ``beam_width`` on the host, CRNN only).
     """
 
     def __init__(
         self,
         model_path: Optional[str] = None,
         use_transformer: bool = False,
+        pad_batch: int = 128,
         seed: int = 0,
+        transformer_config=None,
         decoder: str = "greedy",
+        beam_width: int = 8,
         dtype: Optional[torch.dtype] = None,
         device: str = "cuda",
-        transformer_config=None,
     ):
+        if decoder not in ("greedy", "beam"):
+            raise ValueError(f"unknown decoder {decoder!r}")
         self.use_transformer = use_transformer
         self.vocab = build_vocab()
+        self.pad_batch = pad_batch
+        self.decoder = decoder
+        self.beam_width = beam_width
         if use_transformer:
             from .trocr_runtime import TransformerRecognizer
 
@@ -58,15 +72,12 @@ class TextRecognizer:
             self.crnn = None
             return
         self.transformer = None
-        if decoder != "greedy":
-            raise NotImplementedError(
-                "the native CTC beam decoder waits for a later slice of "
-                "the port; use decoder='greedy'"
-            )
         self.device = resolve_device(device)
         crnn = CRNN(dtype=compute_dtype(self.device, dtype))
         if model_path:
-            crnn.load_state_dict(load_state_dict(model_path))
+            from ..convert import crnn_from_jax
+
+            crnn.load_state_dict(load_weights(model_path, crnn_from_jax))
         else:
             seeded_init_(crnn, seed)
         self.crnn = crnn.to(self.device).eval()
@@ -110,7 +121,36 @@ class TextRecognizer:
         """Normalised crops on the device -> (texts, confidences)."""
         if self.use_transformer:
             return self.transformer.recognize_crops_device(crops)
+        if self.decoder == "beam":
+            return self._beam_decode(crops)
         arrs = ctc_greedy_decode_arrays(self.logits(crops))
         ids = arrs["ids"].cpu().numpy()
         emit = arrs["emit"].cpu().numpy()
         return ids_to_text(ids, emit), arrs["confidence"].cpu().numpy()
+
+    def log_probs(self, crops: torch.Tensor) -> torch.Tensor:
+        """[N, 32, 128, 3] crops -> float32 CTC log-probs [N, 31, 97], on
+        the crops' device."""
+        return torch.log_softmax(self.logits(crops).to(torch.float32), -1)
+
+    def _beam_decode(self, crops: torch.Tensor):
+        """CTC prefix beam search on the host (C++) over the card's
+        log-probs; a beam score is the log-prob of the whole labelling,
+        mapped to (0, 1] per emitted character as the reference does."""
+        from ..native import ctc_beam_decode
+
+        if crops.shape[0] == 0:
+            return [], np.zeros(0, np.float32)
+        lp = self.log_probs(crops).cpu().numpy()
+        seqs, scores = ctc_beam_decode(lp, beam_width=self.beam_width)
+        texts = [
+            "".join(
+                ID_TO_CHAR.get(i, "") for i in seq
+                if len(ID_TO_CHAR.get(i, "")) == 1
+            )
+            for seq in seqs
+        ]
+        confs = np.exp(
+            np.clip(scores / np.maximum([len(s) for s in seqs], 1), -20, 0)
+        )
+        return texts, confs.astype(np.float32)

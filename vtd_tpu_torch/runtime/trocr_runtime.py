@@ -2,11 +2,13 @@
 ``vtd_tpu/runtime/trocr_runtime.py``).
 
 BGR crops in, ``{'text', 'confidence'}`` out; a batch of crops runs one
-KV-cached greedy decode. Weights: ``model_path`` names a torch-format
-``.pth`` / ``.pt`` state dict, in the port's layout
-(``convert.trocr_from_jax`` makes one from ``vtd_tpu`` weights) or in the
-HF VisionEncoderDecoder layout; its architecture comes from a sidecar
-``<ckpt>_config.json`` when no config is passed. Without a path the
+KV-cached greedy decode. Weights: ``model_path`` names what the
+reference's loader takes (an orbax checkpoint directory, a directory or
+file holding a pickled ``variables.pkl``; converted with
+``convert.trocr_from_jax``) or a torch-format ``.pth`` / ``.pt`` state
+dict, in the port's layout or in the HF VisionEncoderDecoder layout; its
+architecture comes from a sidecar ``<ckpt>_config.json`` (or
+``<ckpt>/config.json``) when no config is passed. Without a path the
 weights are drawn from ``seed``.
 
 Unlike the reference there is no zero padding to ``pad_batch``
@@ -23,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.device import load_state_dict, resolve_device
+from ..core.device import resolve_device
 from ..models.trocr import (
     CharTokenizer,
     TrOCR,
@@ -32,6 +34,7 @@ from ..models.trocr import (
     init_weights_,
     load_config,
 )
+from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
 
@@ -66,28 +69,24 @@ class TransformerRecognizer:
     @staticmethod
     def _sidecar_config(model_path: str) -> Optional[TrOCRConfig]:
         """The architecture a checkpoint carries beside it:
-        ``<name>_config.json`` next to ``<name>.pt``, or
-        ``<name>.pt_config.json``."""
+        ``<name>_config.json`` next to ``<name>.pt`` or next to a
+        checkpoint directory ``<name>``, ``<name>.pt_config.json``, or
+        ``config.json`` inside the directory."""
         p = Path(model_path)
         for cand in (
             p.parent / f"{p.stem}_config.json",
             p.parent / f"{p.name}_config.json",
+            p / "config.json",
         ):
             if cand.exists():
                 return load_config(str(cand))
         return None
 
     def _load(self, model_path: str) -> Dict[str, torch.Tensor]:
-        if Path(model_path).suffix not in (".pth", ".pt"):
-            raise ValueError(
-                f"{model_path}: the port loads torch-format .pth/.pt state "
-                "dicts; convert a vtd_tpu checkpoint with "
-                "vtd_tpu_torch.convert.trocr_from_jax first"
-            )
-        sd = load_state_dict(model_path)
-        if any(k.startswith("decoder.model.decoder.") for k in sd):
-            from ..convert import trocr_from_hf_state
+        from ..convert import trocr_from_hf_state, trocr_from_jax
 
+        sd = load_weights(model_path, trocr_from_jax, self.cfg)
+        if any(k.startswith("decoder.model.decoder.") for k in sd):
             sd = trocr_from_hf_state(
                 {k: v.float().numpy() for k, v in sd.items()}, self.cfg
             )
