@@ -50,7 +50,20 @@ any error:
   beam       build the C++ CTC prefix beam with g++, hold it against the
              plain Python beam on the trained CRNN's log-probs of the
              ``trained`` batch and on seeded random log-probs (sequences
-             equal, scores within 1e-4), and time it.
+             equal, scores within 1e-4), and time it;
+  train      the port's training at full width: the DBNet step (640x640,
+             batch 8, float32), the CRNN step (batch 32, CTC on the card),
+             the TrOCR demo step (batch 32) and the default TrOCRConfig's
+             step (batch 16, bf16 compute, float32 weights), each timed
+             with CUDA events with its loss falling (finite for the last),
+             its peak memory, its FLOPs counted from the shapes and a
+             profiler line; ``ModelTrainer`` (2 epochs at 160x160) and
+             ``RecognizerTrainer`` (1 epoch) with their checkpoints read
+             by ``TextDetector`` / ``TextRecognizer``, the demo TrOCR saved
+             and read back by ``TransformerRecognizer``; one DBNet and one
+             CRNN step from the trained checkpoints on the card against
+             the CPU (loss and gradient norm within the stated
+             tolerances).
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -948,6 +961,11 @@ CHECKPOINTS = {
     "trocr": "models/text_recognizer_trocr",
 }
 BOX_TOL_PX = 2  # trained boxes against the JAX package's, per coordinate
+# one train step on the card against the CPU from the same weights: the
+# card's float32 convolutions run in TF32 (PyTorch's default), 10 bits of
+# mantissa against the CPU's 23
+CARD_CPU_LOSS_RTOL = 1e-2
+CARD_CPU_NORM_RTOL = 5e-2
 DET_CONF_TOL = 0.01
 REC_CONF_TOL = 0.05  # bf16 CRNN on the card against the reference's
 
@@ -1247,8 +1265,350 @@ def beam_phase(torch, np, card, state):
           f"({card})")
 
 
+# published dense peaks of one H100 SXM (at 700 W), by the type that ran
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+
+
+def forward_flops(torch, model, *args) -> int:
+    """FLOPs of one forward, counted from the shapes by PyTorch's
+    ``FlopCounterMode`` (convolutions and matrix products), plus 2*B*T*4H*
+    (I+H) a direction and layer for each ``nn.LSTM`` when the counter does
+    not see inside it (cuDNN's RNN is one op to it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    lstms = [m for m in model.modules() if isinstance(m, torch.nn.LSTM)]
+    seen = False
+    if lstms:
+        m = lstms[0]
+        with torch.no_grad(), FlopCounterMode(display=False) as probe:
+            m(torch.zeros(1, 2, m.input_size, device=m.weight_ih_l0.device))
+        seen = probe.get_total_flops() > 0
+    extra = []
+
+    def lstm_hook(m, inp, out):
+        b, t = inp[0].shape[:2]
+        h, width = m.hidden_size, m.input_size
+        for _ in range(m.num_layers):
+            extra.append(2 * (2 * b * t * 4 * h * (width + h)))
+            width = 2 * h
+
+    hooks = [] if seen else [m.register_forward_hook(lstm_hook)
+                             for m in lstms]
+    try:
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            model(*args)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return fc.get_total_flops() + sum(extra)
+
+
+def timed_steps(torch, step, n: int):
+    """``n`` calls of ``step()`` each between CUDA events -> (ms per call,
+    the values ``step`` returned as floats, read after the last call)."""
+    out, ms = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(step())
+        end.record()
+        ms.append((start, end))
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b in ms], [float(v) for v in out])
+
+
+def device_profile(torch, step, n: int = 2) -> str:
+    """``n`` more calls of ``step()`` under ``torch.profiler``: the device's
+    busy share of the wall time (kernel time over wall time, the profiler
+    on) and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    if busy == 0:
+        return "device time: not measured (the profiler saw no kernel)"
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+    return (f"device busy {busy / wall:.1%} of {wall / n * 1e3:.3f} ms a "
+            f"step with the profiler on, {len(kern)} kernel names; top: "
+            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / n / 1e3:.3f}"
+                        f" ms" for e in top))
+
+
+def report_steps(torch, np, card, name, batch, ms, losses, flops, kind,
+                 falls=True):
+    """The per-model training line; fails on a non-finite loss and, with
+    ``falls``, on a last loss not below the first."""
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    med = float(np.median(ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = flops * 3 / (med / 1e3) / PEAK_FLOPS[kind]
+    print(f"train {name}: {med:.3f} ms/step (median of {len(ms)}), "
+          f"{batch / med * 1e3:.1f} samples/s, peak memory {peak:.2f} GiB, "
+          f"{flops * 3 / 1e9:.1f} GFLOP a step (forward x3) = {share:.1%} "
+          f"of the {kind} peak {PEAK_FLOPS[kind] / 1e12:.0f} TFLOP/s; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({card})")
+
+
+def grad_norm(torch, model) -> float:
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                for p in model.parameters()
+                                if p.grad is not None)))
+
+
+def card_against_cpu(torch, name, run, loss_rtol, norm_rtol):
+    """``run(device) -> (loss, model)``: one step from the same weights on
+    the card and on the CPU (lr 0); the loss and the global gradient norm
+    within the stated tolerances."""
+    got = {}
+    for dev in ("cuda", "cpu"):
+        loss, model = run(dev)
+        got[dev] = (float(loss), grad_norm(torch, model))
+    (lc, nc), (lp, ncpu) = got["cuda"], got["cpu"]
+    dl, dn = abs(lc - lp) / abs(lp), abs(nc - ncpu) / ncpu
+    print(f"card against CPU, {name}: loss {lc:.6f} / {lp:.6f} (rel "
+          f"{dl:.2e}, allowed {loss_rtol:g}), gradient norm {nc:.6f} / "
+          f"{ncpu:.6f} (rel {dn:.2e}, allowed {norm_rtol:g})")
+    if not (dl <= loss_rtol and dn <= norm_rtol):
+        raise AssertionError(f"{name}: the card's step differs from the CPU's")
+
+
+def train_phase(torch, np, card):
+    """The port's training on the card: the DBNet, CRNN and TrOCR train
+    steps at full width (timed, the loss falling), the detector and
+    recognizer trainers end to end with their checkpoints read back by the
+    runtime, the default TrOCRConfig in bf16 with float32 weights, and one
+    step of the DBNet and the CRNN on the card against the CPU."""
+    import tempfile
+
+    from vtd_tpu_torch.convert import crnn_from_jax, dbnet_from_jax
+    from vtd_tpu_torch.core.device import seeded_init_
+    from vtd_tpu_torch.models.crnn import CRNN
+    from vtd_tpu_torch.models.dbnet import DBNet
+    from vtd_tpu_torch.models.trocr import (
+        CharTokenizer, TrOCR, TrOCRConfig, init_weights_,
+    )
+    from vtd_tpu_torch.ops.cc_kernels import (
+        neighbor_min_sweeps, segmented_cc_round,
+    )
+    from vtd_tpu_torch.runtime import TextDetector, TextRecognizer
+    from vtd_tpu_torch.runtime.trocr_runtime import TransformerRecognizer
+    from vtd_tpu_torch.train.checkpoint import load_weights, save_state_dict
+    from vtd_tpu_torch.train.recognizer_trainer import (
+        RecognizerTrainer, encode_labels, make_crnn_train_step,
+        synthesize_text_lines,
+    )
+    from vtd_tpu_torch.train.train_detector import synthesize_detection_data
+    from vtd_tpu_torch.train.trainer import (
+        ModelTrainer, TextDetectionDataset, create_train_state,
+        make_train_step,
+    )
+    from vtd_tpu_torch.train.trocr_trainer import (
+        demo_config, encode_tokens, make_trocr_train_step, pack_u8,
+        save_config, synthesize_trocr_crops, warmup_cosine,
+    )
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    conv_kind = "tf32" if tf32 else "float32"
+    print(f"TF32 as the trainers see it: cudnn.allow_tf32={tf32} (float32 "
+          f"convolutions and cuDNN's LSTM), cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} (float32 matrix products)")
+    reset_counts()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- DBNet, ResNet50-FPN at 640x640, batch 8, float32 -------------
+        imgs, tgts = synthesize_detection_data(8, 640, seed=0)
+        st = create_train_state(DBNet(dtype=torch.float32), seed=0,
+                                device="cuda")
+        step = make_train_step(st["model"], st["optimizer"])
+        x = torch.from_numpy(imgs).to(dev)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in tgts.items()}
+        flops = forward_flops(torch, st["model"].eval(), x.permute(0, 3, 1, 2))
+        torch.cuda.reset_peak_memory_stats()
+        timed_steps(torch, lambda: step(x, t)["loss"], 2)
+        ms, losses = timed_steps(torch, lambda: step(x, t)["loss"], 10)
+        report_steps(torch, np, card, "DBNet 640x640 b8 float32", 8, ms,
+                     losses, flops, conv_kind)
+        print("  " + device_profile(torch, lambda: step(x, t)))
+        del st, step, x, t
+
+        images, targets = synthesize_detection_data(64, 160)
+        split = 64 * 4 // 5
+        trainer = ModelTrainer(
+            {"checkpoint_dir": f"{tmp}/dbnet", "max_epochs": 2,
+             "batch_size": 8, "learning_rate": 1e-4, "weight_decay": 1e-5},
+            device="cuda")
+        t0 = time.perf_counter()
+        res = trainer.train(
+            DBNet(dtype=torch.float32),
+            TextDetectionDataset(images[:split],
+                                 {k: v[:split] for k, v in targets.items()}),
+            TextDetectionDataset(images[split:],
+                                 {k: v[split:] for k, v in targets.items()}))
+        if res["status"] != "success":
+            raise AssertionError(f"ModelTrainer failed: {res}")
+        det = TextDetector(model_path=res["best_model_path"], input_size=160,
+                           device="cuda")
+        frames = torch.from_numpy((images[:4] * 255).astype(np.uint8)).to(dev)
+        with torch.inference_mode():
+            prob = det.probability(frames)
+        if not (prob.shape == (4, 160, 160) and torch.isfinite(prob).all()):
+            raise AssertionError("the trained detector's maps are not finite")
+        print(f"ModelTrainer: 2 epochs on 51 + 13 frames of 160x160 in "
+              f"{time.perf_counter() - t0:.1f} s, val_loss "
+              f"{res['best_val_loss']:.4f}, best checkpoint "
+              f"{res['best_model_path'].rsplit('/', 1)[-1]} read by "
+              f"TextDetector: finite maps")
+        del det, trainer, prob, frames
+
+        # -- CRNN, 2x BiLSTM 256, batch 32 of 32x128, CTC on the card ------
+        crops, texts = synthesize_text_lines(32, seed=0)
+        labels, pads = encode_labels(texts)
+        model = seeded_init_(CRNN(dtype=torch.float32), 0).to(dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                weight_decay=1e-5)
+        step = make_crnn_train_step(
+            model, opt, augment=True,
+            generator=torch.Generator(device=dev).manual_seed(11))
+        xb = torch.from_numpy(crops).to(dev)
+        lb, pb = (torch.from_numpy(a).to(dev) for a in (labels, pads))
+        flops = forward_flops(torch, model.eval(), xb.permute(0, 3, 1, 2))
+        torch.cuda.reset_peak_memory_stats()
+        timed_steps(torch, lambda: step(xb, lb, pb), 2)
+        ms, losses = timed_steps(torch, lambda: step(xb, lb, pb), 10)
+        report_steps(torch, np, card, "CRNN b32 float32", 32, ms, losses,
+                     flops, conv_kind)
+        print("  " + device_profile(torch, lambda: step(xb, lb, pb)))
+
+        lines, line_texts = synthesize_text_lines(256)
+        t0 = time.perf_counter()
+        res = RecognizerTrainer(
+            {"checkpoint_dir": f"{tmp}/crnn", "max_epochs": 1,
+             "batch_size": 32, "learning_rate": 1e-3},
+            device="cuda").train(lines[:204], line_texts[:204], lines[204:],
+                                 line_texts[204:])
+        if res["status"] != "success":
+            raise AssertionError(f"RecognizerTrainer failed: {res}")
+        rec = TextRecognizer(model_path=res["best_model_path"],
+                             use_transformer=False, device="cuda")
+        read = rec.recognize_batch([(lines[0] * 255).astype(np.uint8)])
+        if not isinstance(read[0]["text"], str):
+            raise AssertionError("the trained CRNN did not read a crop")
+        print(f"RecognizerTrainer: 1 epoch on 204 lines in "
+              f"{time.perf_counter() - t0:.1f} s, loss "
+              f"{res['final_loss']:.4f}; crnn_final.pt read by TextRecognizer "
+              f"on the card: {read[0]['text']!r} for {line_texts[0]!r}")
+
+        # -- TrOCR demo config (48x192, 128x4, float32), batch 32 ----------
+        cfg = demo_config()
+        tok = CharTokenizer()
+        timgs, ttexts = synthesize_trocr_crops(32, cfg, seed=0)
+        u8 = torch.from_numpy(pack_u8(timgs)).to(dev)
+        tokens = torch.from_numpy(
+            encode_tokens(ttexts, tok, cfg.max_len)).to(dev)
+        model = TrOCR(cfg).float()
+        init_weights_(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
+        step = make_trocr_train_step(
+            model, opt, schedule=lambda n: warmup_cosine(n, 1e-3, 2, 100),
+            augment=True,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        xf = u8.float() / 127.5 - 1.0
+        flops = forward_flops(torch, model.eval(), xf, tokens[:, :-1])
+        torch.cuda.reset_peak_memory_stats()
+        timed_steps(torch, lambda: step(u8, tokens), 2)
+        ms, losses = timed_steps(torch, lambda: step(u8, tokens), 10)
+        report_steps(
+            torch, np, card, "TrOCR demo 48x192 128x4 b32 float32", 32, ms,
+            losses, flops, "float32")
+        print("  " + device_profile(torch, lambda: step(u8, tokens)))
+        path = save_state_dict(f"{tmp}/trocr/trocr_final.pt", model)
+        save_config(f"{tmp}/trocr/trocr_final_config.json", cfg)
+        back = TransformerRecognizer(model_path=path, device="cuda")
+        for k, v in back.model.state_dict().items():
+            if not torch.equal(v, model.state_dict()[k]):
+                raise AssertionError(f"TrOCR reload differs at {k}")
+        back.recognize((timgs[0] * 127.5 + 127.5).astype(np.uint8))
+        print("TrOCR demo: trocr_final.pt + trocr_final_config.json read "
+              "back by TransformerRecognizer, weights equal")
+
+    # -- default TrOCRConfig (384^2, 768x12 / 1024x12), bf16, batch 16 ----
+    cfg = TrOCRConfig(vocab_size=CharTokenizer().vocab_size)
+    model = TrOCR(cfg).float()  # float32 master weights, bf16 compute
+    init_weights_(model, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    model.to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=0.0, weight_decay=1e-4)
+    step = make_trocr_train_step(
+        model, opt, schedule=lambda n: warmup_cosine(n, 1e-4, 1, 100))
+    timgs, ttexts = synthesize_trocr_crops(16, cfg, seed=1)
+    u8 = torch.from_numpy(pack_u8(timgs)).to(dev)
+    tokens = torch.from_numpy(
+        encode_tokens(ttexts, CharTokenizer(), cfg.max_len)).to(dev)
+    flops = forward_flops(torch, model.eval(), u8.float() / 127.5 - 1.0,
+                          tokens[:, :-1])
+    torch.cuda.reset_peak_memory_stats()
+    timed_steps(torch, lambda: step(u8, tokens), 1)
+    ms, losses = timed_steps(torch, lambda: step(u8, tokens), 5)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError("TrOCR master weights left float32")
+    report_steps(
+        torch, np, card, f"TrOCR default config ({n_params / 1e6:.1f} M "
+        f"parameters) b16 bf16 compute, float32 weights", 16, ms, losses,
+        flops, "bfloat16", falls=False)
+    print("  " + device_profile(torch, lambda: step(u8, tokens)))
+    del model, opt, step
+
+    # -- one step on the card against the CPU, the trained weights --------
+    det_w = load_weights(CHECKPOINTS["detector"], dbnet_from_jax)
+    imgs, tgts = synthesize_detection_data(2, 160, seed=1)
+
+    def db_run(d):
+        st = create_train_state(DBNet(dtype=torch.float32), learning_rate=0.0,
+                                weights=det_w, device=d)
+        loss = make_train_step(st["model"], st["optimizer"])(
+            torch.from_numpy(imgs).to(d),
+            {k: torch.from_numpy(v).to(d) for k, v in tgts.items()})["loss"]
+        return loss, st["model"]
+
+    card_against_cpu(torch, "DBNet 160x160 b2 (models/text_detector)",
+                     db_run, CARD_CPU_LOSS_RTOL, CARD_CPU_NORM_RTOL)
+    crnn_w = load_weights(CHECKPOINTS["crnn"], crnn_from_jax)
+    crops, texts = synthesize_text_lines(8, seed=1)
+    labels, pads = encode_labels(texts)
+
+    def crnn_run(d):
+        m = CRNN(dtype=torch.float32)
+        m.load_state_dict(crnn_w)
+        m.to(d)
+        opt = torch.optim.AdamW(m.parameters(), lr=0.0)
+        loss = make_crnn_train_step(m, opt)(
+            torch.from_numpy(crops).to(d), torch.from_numpy(labels).to(d),
+            torch.from_numpy(pads).to(d))
+        return loss, m
+
+    card_against_cpu(torch, "CRNN b8 (models/text_recognizer)", crnn_run,
+                     CARD_CPU_LOSS_RTOL, CARD_CPU_NORM_RTOL)
+    print(f"train path: segmented_cc_round {segmented_cc_round.launches} "
+          f"calls, neighbor_min_sweeps {neighbor_min_sweeps.launches} calls "
+          f"(training launches neither TPU kernel)")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
-          "engine", "beam")
+          "engine", "beam", "train")
 
 
 def main(argv=None) -> int:
@@ -1302,6 +1662,7 @@ def main(argv=None) -> int:
         "trained": lambda: trained_phase(torch, np, card, results, state),
         "engine": lambda: engine_phase(torch, np, card, results, state),
         "beam": lambda: beam_phase(torch, np, card, state),
+        "train": lambda: train_phase(torch, np, card),
     }
     for name in PHASES:
         if name in phases:

@@ -13,7 +13,10 @@ temporal dedup (``ops/nms.py``). Both TPU kernels of the reference are
 hand-written CUDA kernels with plain PyTorch twins in
 ``ops/cc_kernels.py``: ``segmented_cc_round`` (``csrc/segmented_cc.cu``,
 the labelling rounds of the video paths) and ``neighbor_min_sweeps``
-(``csrc/neighbor_min_sweeps.cu``, the dense labelling backends).
+(``csrc/neighbor_min_sweeps.cu``, the dense labelling backends). Since
+the fourth slice: training on one card (``train/``: the DB loss and
+label maps, ``ModelTrainer``, ``RecognizerTrainer``, ``TrOCRTrainer``)
+and the command line (``python -m vtd_tpu_torch process | train-*``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

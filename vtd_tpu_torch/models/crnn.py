@@ -8,7 +8,9 @@ state dicts load directly. The reference keeps torch's LSTM gate order
 
 Input NCHW [B, 3, 32, 128] in [0, 1]; output logits [B, T=31, V=97].
 The conv stack computes in ``dtype`` (bf16 on the card, as the
-reference) with BatchNorm, LSTM and classifier in float32.
+reference; float32 for training, as the reference trains it) with
+BatchNorm (flax's train-mode semantics, ``resnet.BatchNorm2d``), LSTM and
+classifier in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+
+from .resnet import BatchNorm2d
 
 VOCAB_CHARS = (
     "0123456789abcdefghijklmnopqrstuvwxyz"
@@ -43,7 +47,7 @@ BN_EPS = 1e-5
 def _conv_bn_relu(cin, cout, k=3, pad=1):
     return [
         nn.Conv2d(cin, cout, k, padding=pad, bias=True),
-        nn.BatchNorm2d(cout, eps=BN_EPS),
+        BatchNorm2d(cout, eps=BN_EPS),
         nn.ReLU(),
     ]
 
@@ -78,15 +82,17 @@ class CRNN(nn.Module):
                 m.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # at least float32 after the convolutions (float64 stays float64)
+        wide = torch.promote_types(self.classifier.weight.dtype, torch.float32)
         for m in self.cnn:
             if isinstance(m, nn.Conv2d):
                 x = m(x.to(m.weight.dtype))
             elif isinstance(m, nn.BatchNorm2d):
-                x = m(x.float())
+                x = m(x.to(wide))
             else:
                 x = m(x)
         b, c, h, w = x.shape
         # [B, C, 1, T] -> [B, T, C*H] (H = 1)
-        seq = x.permute(0, 3, 1, 2).reshape(b, w, c * h).float()
+        seq = x.permute(0, 3, 1, 2).reshape(b, w, c * h).to(wide)
         seq, _ = self.rnn(seq)
         return self.classifier(seq)

@@ -2,8 +2,10 @@
 ``vtd_tpu/models/dbnet.py``). NCHW; maps come out at input resolution.
 
 The compute dtype is the module's parameter dtype: bf16 on the card, as
-the reference computes, float32 for the CPU parity tests. The sigmoid
-runs in float32 and the map is returned in the compute dtype.
+the reference computes, float32 for the CPU parity tests and for
+training (the reference trains ``DBNet(dtype=float32)``). The sigmoid
+runs in float32; the map is returned in the compute dtype in eval mode
+and in float32 in train mode, as the reference returns it.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import BN_EPS, ResNet50
+from .resnet import BN_EPS, BatchNorm2d, ResNet50
 
 
 def _upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -69,16 +71,17 @@ class _HeadBranch(nn.Module):
         super().__init__()
         mid = in_channels // 4
         self.conv = nn.Conv2d(in_channels, mid, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(mid, eps=BN_EPS)
         self.up1 = _Upsample2x(mid, mid)
-        self.bn2 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(mid, eps=BN_EPS)
         self.up2 = _Upsample2x(mid, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv(x)))
         x = F.relu(self.bn2(self.up1(x)))
         x = self.up2(x)
-        return torch.sigmoid(x.float()).to(x.dtype)
+        y = torch.sigmoid(x.float())
+        return y if self.training else y.to(x.dtype)
 
 
 class DBHead(nn.Module):
@@ -95,8 +98,10 @@ class DBHead(nn.Module):
 class DBNet(nn.Module):
     """Normalised NCHW image -> {'probability', 'threshold'} [B,1,H,W]."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 db_k: float = 50.0):
         super().__init__()
+        self.db_k = db_k
         self.backbone = ResNet50()
         self.fpn = FPNNeck()
         self.head = DBHead()
@@ -112,3 +117,9 @@ class DBNet(nn.Module):
     def probability(self, x: torch.Tensor) -> torch.Tensor:
         """Inference path: only the probability branch -> [B, H, W]."""
         return self.head.probability(self.features(x))[:, 0]
+
+    def binary(self, out: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The differentiable binarization ``sigmoid(db_k * (P - T))`` of
+        a forward's maps (the DB formulation; the loss does not use it)."""
+        return torch.sigmoid(self.db_k * (out["probability"]
+                                          - out["threshold"]))

@@ -7,6 +7,10 @@ torch importer maps from, so such state dicts load directly. NCHW.
 The reference's stem is a space-to-depth rewrite of the plain 7x7/2
 convolution with padding 3 on the same ``conv1`` kernel; here it is that
 plain convolution. Every padding is explicit, as in the reference.
+
+``BatchNorm2d`` here is the one BatchNorm of the port's three models: in
+eval mode torch's, in train mode flax's (``nn.BatchNorm(momentum=0.9)``),
+so that the trainers update the running statistics as the reference's do.
 """
 from __future__ import annotations
 
@@ -17,6 +21,38 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode semantics.
+
+    Train mode normalises with the batch's biased statistics in float32
+    (float64 for a float64 input) and updates the running statistics as
+    flax does: ``0.9 * old + 0.1 * batch``, the batch variance biased and
+    taken as ``E[x^2] - E[x]^2`` clipped at 0 (flax's fast variance).
+    ``nn.BatchNorm2d`` would put the unbiased variance into
+    ``running_var``, n/(n-1) larger, which is far off at a small
+    ``B*H*W`` (the CRNN's last layers, ResNet's C5). The normalisation
+    itself is torch's fused one, whose variance differs from flax's only
+    in rounding. Eval mode is torch's own; the state-dict keys are
+    torch's.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        with torch.no_grad():
+            dims = (0, 2, 3)
+            mean = xf.mean(dims)
+            var = (xf.square().mean(dims) - mean.square()).clamp_min(0.0)
+            self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+            self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+            self.num_batches_tracked.add_(1)
+        y = F.batch_norm(xf, None, None, self.weight, self.bias,
+                         training=True, momentum=0.0, eps=self.eps)
+        return y.to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -26,18 +62,18 @@ class Bottleneck(nn.Module):
         super().__init__()
         out_ch = 4 * features
         self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(features, eps=BN_EPS)
         self.conv2 = nn.Conv2d(
             features, features, 3, stride=stride, padding=1, bias=False
         )
-        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(features, eps=BN_EPS)
         self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(out_ch, eps=BN_EPS)
         self.downsample = None
         if in_ch != out_ch or stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out_ch, eps=BN_EPS),
+                BatchNorm2d(out_ch, eps=BN_EPS),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +90,7 @@ class ResNet50(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         in_ch = 64
         for stage, (n_blocks, width) in enumerate(
             zip(stage_sizes, (64, 128, 256, 512))

@@ -13,8 +13,13 @@ tanh gelu unless ``gelu_exact``; token embedding, position embeddings,
 Linear of its own (not tied to ``tok_embed``), and a post-norm decoder
 has no ``ln_f``.
 
-Every matrix product here is a plain ``torch.matmul`` / ``nn.Linear``, as
-the reference leaves them to XLA outside any kernel.
+Every matrix product here is a plain ``torch.matmul`` / ``F.linear``, as
+the reference leaves them to XLA outside any kernel. The projections and
+the patch embedding cast their weights to ``cfg.dtype`` where they are
+used, as flax casts its float32 parameters to the compute dtype: the
+inference paths build their weights in ``cfg.dtype`` (the casts are
+no-ops), and training keeps float32 master weights (``model.float()``)
+that compute in ``cfg.dtype``.
 
 Layout: images are NHWC ``[B, H, W, 3]`` at the public functions, as in
 the reference; K/V caches are ``[B, T, heads, head_dim]``.
@@ -183,6 +188,13 @@ class LayerNorm32(nn.LayerNorm):
         )
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``, the weights cast at use."""
+    b = layer.bias
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    None if b is None else b.to(dtype))
+
+
 class Attention(nn.Module):
     """Multi-head attention with an externally managed K/V cache."""
 
@@ -202,14 +214,14 @@ class Attention(nn.Module):
         return x.reshape(b, t, self.heads, self.head_dim)
 
     def project_kv(self, xkv: torch.Tensor) -> KV:
-        xkv = xkv.to(self.dtype)
-        return self._split(self.k(xkv)), self._split(self.v(xkv))
+        k = _linear(self.k, xkv, self.dtype)
+        return self._split(k), self._split(_linear(self.v, xkv, self.dtype))
 
     def forward(self, xq, xkv, mask=None, kv_cache: Optional[KV] = None):
         """xq [B,Tq,D]; xkv [B,Tk,Dkv] (ignored when ``kv_cache`` is
         given); mask broadcastable to [B,H,Tq,Tk], True = attend.
         Returns (out [B,Tq,D], (k, v) [B,Tk,H,hd])."""
-        q = self._split(self.q(xq.to(self.dtype)))
+        q = self._split(_linear(self.q, xq, self.dtype))
         k, v = kv_cache if kv_cache is not None else self.project_kv(xkv)
         # scores accumulate in float32 from cfg.dtype operands
         attn = torch.matmul(
@@ -221,7 +233,7 @@ class Attention(nn.Module):
         out = torch.matmul(attn, v.permute(0, 2, 1, 3).to(self.dtype))
         b, t = xq.shape[:2]
         out = out.permute(0, 2, 1, 3).reshape(b, t, self.dim)
-        return self.o(out), (k, v)
+        return _linear(self.o, out, self.dtype), (k, v)
 
 
 class Mlp(nn.Module):
@@ -234,8 +246,9 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(self.fc1(x.to(self.dtype)), approximate=self.approximate)
-        return self.fc2(x)
+        x = F.gelu(_linear(self.fc1, x, self.dtype),
+                   approximate=self.approximate)
+        return _linear(self.fc2, x, self.dtype)
 
 
 class EncoderBlock(nn.Module):
@@ -276,7 +289,11 @@ class ViTEncoder(nn.Module):
         """images [B, H, W, 3] float (normalised) -> [B, N, D]; patch
         tokens in row-major order after the CLS token."""
         c = self.cfg
-        x = self.patch_embed(images.to(c.dtype).permute(0, 3, 1, 2))
+        pe = self.patch_embed
+        x = F.conv2d(
+            images.to(c.dtype).permute(0, 3, 1, 2), pe.weight.to(c.dtype),
+            pe.bias.to(c.dtype), stride=c.patch_size,
+        )
         x = x.flatten(2).transpose(1, 2)
         cls = self.cls_token.to(c.dtype).expand(x.shape[0], 1, c.enc_dim)
         x = torch.cat([cls, x], 1) + self.pos_embed.to(c.dtype)

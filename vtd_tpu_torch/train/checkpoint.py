@@ -1,5 +1,9 @@
-"""Restore the JAX package's checkpoints without JAX (port of the restore
-side of ``vtd_tpu/train/checkpoint.py``).
+"""Checkpoints of the port: save its own torch-format state dicts, and
+restore the JAX package's checkpoints without JAX (port of
+``vtd_tpu/train/checkpoint.py``).
+
+``save_state_dict(path, model)`` writes the port's format, a ``.pt``
+state dict, which every loader of the port takes (``load_weights``).
 
 ``restore_variables(path)`` returns the variables tree as nested dicts of
 numpy arrays, keyed exactly as the reference's restore keys it. It reads
@@ -17,6 +21,7 @@ names each leaf's stored dtype so that a caller can ask for bf16 back
 from __future__ import annotations
 
 import json
+import os
 import pickle
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Tuple
@@ -119,6 +124,20 @@ def restore_variables(path: str | Path) -> Any:
     if kind == "pickle":
         return _restore_pickle(where)
     return _read_orbax(where)
+
+
+def save_state_dict(path: str | Path, model: torch.nn.Module) -> str:
+    """Write ``model``'s state dict to ``path`` (a ``.pt`` file; its
+    directory is made), its tensors on the CPU; returns the path. The
+    file is written under a temporary name and renamed, so a kill during
+    the save leaves any earlier file at ``path`` whole."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    tmp = p.with_name(p.name + ".tmp")
+    torch.save(sd, tmp)
+    os.replace(tmp, p)
+    return str(p)
 
 
 def load_state_dict(path: str | Path) -> dict:

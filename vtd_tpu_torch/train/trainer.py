@@ -1,0 +1,325 @@
+"""DBNet trainer (port of ``vtd_tpu/train/trainer.py``).
+
+The reference's behaviour, on one card:
+
+  * loss = BCE(prob) + BCE(thresh) + Dice(prob)      (``losses.py``)
+  * AdamW, lr 1e-4, weight decay 1e-5 (torch's AdamW with betas (0.9,
+    0.999) and eps 1e-8 computes optax's ``adamw`` update)
+  * the plateau rule on val_loss (factor 0.5, patience 5), which scales
+    the optimizer's learning rate
+  * val precision / recall / F1 at 0.5, counted on the device and masked
+    by the batch's validity
+  * top-k checkpoints by val_loss (stale ones deleted), early stopping
+  * ``ModelTrainer.train`` / ``.evaluate`` and their result dicts.
+
+Checkpoints are the port's torch format (``epoch<E>-val<L>.pt`` state
+dicts), which ``TextDetector(model_path=...)`` loads as they are. A
+``mesh`` (several cards) is not ported yet: ROADMAP queue 1 item 7.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device, seeded_init_
+from .checkpoint import save_state_dict
+from .losses import db_loss
+
+logger = logging.getLogger(__name__)
+
+MESH_NOT_PORTED = (
+    "training over a device mesh is not ported yet (ROADMAP queue 1 item "
+    "7, multiple GPUs); train on one card"
+)
+
+
+class TextDetectionDataset:
+    """In-memory dataset of (image, target) pairs.
+
+    images: [N, H, W, 3] float32 (normalised, NHWC as the reference's);
+    targets: dict with 'probability_map' and 'threshold_map', each
+    [N, H, W].
+    """
+
+    def __init__(self, images, targets, transform=None):
+        self.images = np.asarray(images, np.float32)
+        self.targets = {
+            k: np.asarray(v, np.float32) for k, v in targets.items()
+        }
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.images)
+
+    def batches(
+        self, batch_size: int, shuffle: bool = False, seed: int = 0,
+        with_valid: bool = False,
+    ) -> Iterable[Tuple]:
+        """Fixed-size batches; the tail batch is filled by tiling the
+        dataset. ``with_valid=True`` also yields a [batch_size] bool mask
+        of the real (not tiled) samples, which evaluation needs."""
+        n = len(self)
+        idx = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        for i in range(0, n, batch_size):
+            sel = idx[i:i + batch_size]
+            n_real = len(sel)
+            if n_real < batch_size:
+                reps = -(-(batch_size - n_real) // n)  # ceil
+                sel = np.concatenate([sel] + [idx] * reps)[:batch_size]
+            imgs = self.images[sel]
+            if self.transform:
+                imgs = self.transform(imgs)
+            targets = {k: v[sel] for k, v in self.targets.items()}
+            if with_valid:
+                valid = np.zeros(batch_size, bool)
+                valid[:n_real] = True
+                yield imgs, targets, valid
+            else:
+                yield imgs, targets
+
+
+def create_train_state(
+    model: torch.nn.Module,
+    learning_rate: float = 1e-4,
+    weight_decay: float = 1e-5,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> Dict[str, Any]:
+    """The model's weights (``weights``, a port state dict, or drawn from
+    ``seed`` as ``core.device.seeded_init_`` draws them), on ``device``,
+    and AdamW over its parameters. The learning rate lives in the
+    optimizer's ``param_groups``, where the plateau rule scales it."""
+    dev = resolve_device(device)
+    if weights is not None:
+        model.load_state_dict(weights)
+    else:
+        seeded_init_(model, seed)
+    model.to(dev)
+    optimizer = torch.optim.AdamW(
+        model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=weight_decay,
+    )
+    return {"model": model, "optimizer": optimizer, "device": dev}
+
+
+def _nchw(images: torch.Tensor) -> torch.Tensor:
+    return images.permute(0, 3, 1, 2)
+
+
+def make_train_step(
+    model: torch.nn.Module, optimizer: torch.optim.Optimizer
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(images [B,H,W,3], targets) -> aux`` (0-d loss tensors on the
+    device): one forward in train mode (BatchNorm on batch statistics,
+    running statistics updated), the DB loss, backward and an AdamW
+    update. The step's gradients stay in the parameters' ``.grad`` until
+    the next step clears them."""
+
+    def train_step(images: torch.Tensor, targets: Dict[str, torch.Tensor]):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        total, aux = db_loss(model(_nchw(images)), targets)
+        total.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in aux.items()}
+
+    return train_step
+
+
+def make_eval_step(model: torch.nn.Module):
+    """``step(images, targets, valid) -> aux`` with the loss weighted by
+    ``valid`` and tp / fp / fn of the probability map at 0.5, masked so
+    that tail padding counts nothing."""
+
+    @torch.no_grad()
+    def eval_step(images, targets, valid):
+        model.eval()
+        out = model(_nchw(images))
+        _, aux = db_loss(out, targets, sample_weight=valid)
+        w = valid.to(torch.float32)[:, None, None]
+        pred = (out["probability"][:, 0] > 0.5).to(torch.float32)
+        tgt = targets["probability_map"]
+        aux.update({
+            "tp": (pred * tgt * w).sum(),
+            "fp": (pred * (1 - tgt) * w).sum(),
+            "fn": ((1 - pred) * tgt * w).sum(),
+        })
+        return aux
+
+    return eval_step
+
+
+class ModelTrainer:
+    """Training driver. config keys: checkpoint_dir, max_epochs,
+    learning_rate, weight_decay, batch_size, seed, early_stop_patience
+    (10), plateau_patience (5), plateau_factor (0.5), save_top_k (3)."""
+
+    def __init__(self, config: Dict[str, Any], mesh: Optional[Any] = None,
+                 device: str = "cuda"):
+        if mesh is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
+        self.config = dict(config)
+        self.device = resolve_device(device)
+
+    def _put(self, imgs: np.ndarray, targets: Dict[str, np.ndarray]):
+        dev = self.device
+        return torch.from_numpy(imgs).to(dev), {
+            k: torch.from_numpy(v).to(dev) for k, v in targets.items()
+        }
+
+    # ------------------------------------------------------------------
+    def train(
+        self,
+        model: torch.nn.Module,
+        train_data: TextDetectionDataset,
+        val_data: TextDetectionDataset,
+    ) -> Dict[str, Any]:
+        """Train ``model`` (weights drawn from ``seed``, as the reference
+        draws its) -> {status, best_model_path, best_val_loss,
+        epochs_trained, history}, or {status: failed, error}."""
+        cfg = self.config
+        try:
+            batch_size = int(cfg.get("batch_size", 8))
+            state = create_train_state(
+                model,
+                learning_rate=float(cfg.get("learning_rate", 1e-4)),
+                weight_decay=float(cfg.get("weight_decay", 1e-5)),
+                seed=int(cfg.get("seed", 0)),
+                device=self.device,
+            )
+            optimizer = state["optimizer"]
+            train_step = make_train_step(model, optimizer)
+            eval_step = make_eval_step(model)
+
+            ckpt_dir = Path(cfg.get("checkpoint_dir", "./checkpoints"))
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            max_epochs = int(cfg.get("max_epochs", 10))
+            es_patience = int(cfg.get("early_stop_patience", 10))
+            pl_patience = int(cfg.get("plateau_patience", 5))
+            pl_factor = float(cfg.get("plateau_factor", 0.5))
+            top_k = int(cfg.get("save_top_k", 3))
+
+            best_val = float("inf")
+            best_path = ""
+            epochs_no_improve = 0
+            plateau_count = 0
+            saved: List[Tuple[float, str]] = []
+            history: List[Dict[str, float]] = []
+            epoch = 0
+
+            for epoch in range(max_epochs):
+                t0 = time.time()
+                train_losses = []
+                for imgs, targets in train_data.batches(
+                    batch_size, shuffle=True, seed=epoch
+                ):
+                    aux = train_step(*self._put(imgs, targets))
+                    train_losses.append(float(aux["loss"]))
+
+                val = self._evaluate_epoch(eval_step, val_data, batch_size)
+                history.append(
+                    {
+                        "epoch": epoch,
+                        "train_loss": float(np.mean(train_losses)),
+                        "epoch_seconds": time.time() - t0,
+                        **val,
+                    }
+                )
+                logger.info("epoch %d: %s", epoch, history[-1])
+
+                # plateau rule
+                if val["val_loss"] < best_val - 1e-6:
+                    plateau_count = 0
+                else:
+                    plateau_count += 1
+                    if plateau_count > pl_patience:
+                        for group in optimizer.param_groups:
+                            group["lr"] = group["lr"] * pl_factor
+                        plateau_count = 0
+
+                # top-k checkpoints by val_loss
+                if len(saved) < top_k or val["val_loss"] < saved[-1][0]:
+                    path = save_state_dict(
+                        ckpt_dir / f"epoch{epoch}-val{val['val_loss']:.4f}.pt",
+                        model,
+                    )
+                    saved.append((val["val_loss"], path))
+                    saved.sort(key=lambda t: t[0])
+                    for _, stale in saved[top_k:]:
+                        Path(stale).unlink(missing_ok=True)
+                    saved = saved[:top_k]
+
+                # early stopping
+                if val["val_loss"] < best_val - 1e-6:
+                    best_val = val["val_loss"]
+                    best_path = saved[0][1]
+                    epochs_no_improve = 0
+                else:
+                    epochs_no_improve += 1
+                    if epochs_no_improve >= es_patience:
+                        break
+
+            return {
+                "status": "success",
+                "best_model_path": best_path or (saved[0][1] if saved else ""),
+                "best_val_loss": float(best_val),
+                "epochs_trained": epoch + 1,
+                "history": history,
+            }
+        except Exception as e:
+            logger.error("Training failed: %s", e)
+            return {"status": "failed", "error": str(e)}
+
+    # ------------------------------------------------------------------
+    def _evaluate_epoch(
+        self, eval_step, data: TextDetectionDataset, batch_size: int
+    ) -> Dict[str, float]:
+        losses, tp, fp, fn = [], 0.0, 0.0, 0.0
+        for imgs, targets, valid in data.batches(batch_size, with_valid=True):
+            aux = eval_step(
+                *self._put(imgs, targets),
+                torch.from_numpy(valid).to(self.device),
+            )
+            # the running loss mean weighted by each batch's real samples
+            losses.extend([float(aux["loss"])] * int(valid.sum()))
+            tp += float(aux["tp"])
+            fp += float(aux["fp"])
+            fn += float(aux["fn"])
+        precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+        recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+        f1 = (
+            2 * precision * recall / (precision + recall)
+            if precision + recall > 0
+            else 0.0
+        )
+        return {
+            "val_loss": float(np.mean(losses)) if losses else 0.0,
+            "val_precision": precision,
+            "val_recall": recall,
+            "val_f1": f1,
+        }
+
+    # ------------------------------------------------------------------
+    def evaluate(
+        self, model: torch.nn.Module, test_data: TextDetectionDataset,
+        variables: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, float]:
+        """Metrics of ``model`` with ``variables`` (a port state dict, such
+        as a checkpoint's) or, without them, with weights drawn from seed
+        0, as the reference evaluates a fresh state."""
+        if variables is None:
+            seeded_init_(model, 0)
+        else:
+            model.load_state_dict(variables)
+        model.to(self.device)
+        batch_size = int(self.config.get("batch_size", 8))
+        return self._evaluate_epoch(make_eval_step(model), test_data,
+                                    batch_size)
