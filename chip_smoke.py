@@ -51,6 +51,21 @@ any error:
              plain Python beam on the trained CRNN's log-probs of the
              ``trained`` batch and on seeded random log-probs (sequences
              equal, scores within 1e-4), and time it;
+  serve      the port's REST service: its ``Server`` on 127.0.0.1 in a
+             thread (thread worker, in-memory SQLite, the trained
+             checkpoints of ``models/``, ``device="cuda"``), driven over
+             HTTP with urllib: register, log in, upload a 640x640 mp4v clip
+             of the shipped frame with a scene change halfway, detect with
+             the CRNN, with TrOCR and with ``sample_mode=keyframe`` (two
+             jobs back to back, each equal to its solo run), poll, read the
+             results and the CSV / XML / annotated exports; every frame
+             must read HELLO, WORLD, 123, ``segmented_cc_round`` must be
+             launched inside the jobs, ``/health/detailed`` must name the
+             card through the CUDA probe and ``/metrics`` count the
+             pipeline's batches; the same clip straight through
+             ``process_video`` for comparison; then ``python -m
+             vtd_tpu_torch serve`` as a process until ``/health/ready``
+             answers;
   train      the port's training at full width: the DBNet step (640x640,
              batch 8, float32), the CRNN step (batch 32, CTC on the card),
              the TrOCR demo step (batch 32) and the default TrOCRConfig's
@@ -1254,8 +1269,9 @@ def beam_phase(torch, np, card, state):
         out.append(f"{name} [{lp.shape[0]}, {lp.shape[1]}, {lp.shape[2]}]: "
                    f"{ms:.3f} ms per batch (plain Python {plain_ms:.3f} ms), "
                    f"scores within {err:.2e}")
-    rec = TextRecognizer(CHECKPOINTS["crnn"], decoder="beam", beam_width=8,
-                         pad_batch=128, device="cuda")
+    rec = TextRecognizer(CHECKPOINTS["crnn"], use_transformer=False,
+                         decoder="beam", beam_width=8, pad_batch=128,
+                         device="cuda")
     texts, confs = rec.recognize_crops_device(crops)
     if sorted(texts) != sorted(TRUTH * B):
         raise AssertionError(f"beam decoder read {sorted(set(texts))}")
@@ -1607,8 +1623,412 @@ def train_phase(torch, np, card):
           f"(training launches neither TPU kernel)")
 
 
+SERVE_FPS = 30.0
+SERVE_SECONDS = 2  # 20 stride candidates at the default 10 fps
+JOB_DEADLINE_S = 120.0
+SERVE_BOX_TOL_PX = 1  # a job run alone against the same job run beside another
+SERVE_CONF_TOL = 1e-3
+
+
+def write_serve_clip(np, path: str) -> int:
+    """The shipped frame for the first second, then the same text moved
+    240 px right (a scene change for the keyframe gate), as mp4v; returns
+    the frame count."""
+    import cv2
+
+    frame = verify_frames(np)["frame_bgr"]
+    moved = np.empty_like(frame)
+    moved[:] = frame[0, 0]
+    moved[:, 240:] = frame[:, :400]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             SERVE_FPS, (640, 640))
+    if not writer.isOpened():
+        raise RuntimeError("cv2 cannot write mp4v")
+    n = int(SERVE_FPS * SERVE_SECONDS)
+    for i in range(n):
+        writer.write(frame if i < n // 2 else moved)
+    writer.release()
+    return n
+
+
+class Api:
+    """A urllib client of the service, with proxies off (the server is on
+    127.0.0.1)."""
+
+    def __init__(self, base: str):
+        import urllib.request
+
+        self.base = base
+        self.headers: dict = {}
+        self._open = urllib.request.build_opener(
+            urllib.request.ProxyHandler({})).open
+
+    def call(self, method, path, data=None, ctype=None, query=None,
+             timeout=60.0):
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = self.base + path
+        if query:
+            url += "?" + urllib.parse.urlencode(query)
+        headers = dict(self.headers)
+        if ctype:
+            headers["Content-Type"] = ctype
+        req = urllib.request.Request(url, data=data, method=method,
+                                     headers=headers)
+        try:
+            with self._open(req, timeout=timeout) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def json(self, method, path, expect=200, **kw):
+        status, body = self.call(method, path, **kw)
+        if status != expect:
+            raise AssertionError(
+                f"{method} {path}: HTTP {status} {body[:400]!r}")
+        return json.loads(body) if body else None
+
+    def upload(self, name: str, content: bytes) -> dict:
+        boundary = "vtdsmokeboundary"
+        body = (
+            f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+            f'filename="{name}"\r\nContent-Type: video/mp4\r\n\r\n'
+        ).encode() + content + f"\r\n--{boundary}--\r\n".encode()
+        return self.json(
+            "POST", "/api/v1/videos/upload", expect=201, data=body,
+            ctype=f"multipart/form-data; boundary={boundary}")
+
+    def detect(self, video_id: int, **query) -> tuple:
+        """POST detect; returns (job id, the time it was posted)."""
+        t0 = time.perf_counter()
+        job = self.json("POST",
+                        f"/api/v1/processing/videos/{video_id}/detect",
+                        query=query)
+        return job["id"], t0
+
+    def wait(self, job_id: int, t0: float) -> tuple:
+        """Poll the job's status every 20 ms until it ends; returns (the
+        job row with its result_data, seconds from the POST to the first
+        poll that read 'completed')."""
+        deadline = t0 + JOB_DEADLINE_S
+        while True:
+            st = self.json("GET", f"/api/v1/processing/jobs/{job_id}/status")
+            if st["status"] in ("completed", "failed", "cancelled"):
+                wall = time.perf_counter() - t0
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"job {job_id} not done: {st}")
+            time.sleep(0.02)
+        if st["status"] != "completed":
+            raise AssertionError(f"job {job_id} {st['status']}: "
+                                 f"{st['error_message']}")
+        return self.json("GET", f"/api/v1/processing/jobs/{job_id}"), wall
+
+
+def wait_ready(api, deadline_s: float) -> tuple:
+    """Poll /health/ready until it answers; (status, body, seconds)."""
+    import urllib.error
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            status, body = api.call("GET", "/health/ready", timeout=30.0)
+            return status, body, time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            if time.perf_counter() - t0 > deadline_s:
+                raise
+            time.sleep(0.05)
+
+
+def check_served_texts(result: dict, label: str, n_frames: int) -> int:
+    """Every sampled frame of a job reads TRUTH; returns the detections."""
+    frames = result["results"]
+    if [f["frame_number"] for f in frames] != list(range(n_frames)):
+        raise AssertionError(f"{label}: frames "
+                             f"{[f['frame_number'] for f in frames]}")
+    for f in frames:
+        got = sorted(d["text"] for d in f["detections"])
+        if got != sorted(TRUTH):
+            raise AssertionError(
+                f"{label} frame {f['frame_number']}: read {got}, the "
+                f"trained phase reads {sorted(TRUTH)}")
+    return sum(len(f["detections"]) for f in frames)
+
+
+def same_job_results(a: dict, b: dict, label: str) -> None:
+    """A job run beside another against the same job run alone."""
+    fa, fb = a["results"], b["results"]
+    if [f["frame_number"] for f in fa] != [f["frame_number"] for f in fb]:
+        raise AssertionError(f"{label}: other frames")
+    for x, y in zip(fa, fb):
+        if x.get("duplicate_of") != y.get("duplicate_of"):
+            raise AssertionError(f"{label}: other keyframes")
+        dx = sorted(x["detections"], key=lambda d: d["text"])
+        dy = sorted(y["detections"], key=lambda d: d["text"])
+        if [d["text"] for d in dx] != [d["text"] for d in dy]:
+            raise AssertionError(f"{label} frame {x['frame_number']}: texts")
+        for p, q in zip(dx, dy):
+            box = max(abs(u - v) for u, v in zip(p["bbox"], q["bbox"]))
+            conf = abs(p["detection_confidence"] - q["detection_confidence"])
+            if box > SERVE_BOX_TOL_PX or conf > SERVE_CONF_TOL:
+                raise AssertionError(
+                    f"{label} frame {x['frame_number']}: box {box} px, "
+                    f"confidence {conf}")
+
+
+def metric_value(text: str, sample: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"/metrics has no sample {sample}")
+
+
+def serve_phase(torch, np, card, results):
+    """The port's REST service on the card: the in-process server with its
+    thread worker, driven over HTTP through jobs on the trained
+    checkpoints; then ``python -m vtd_tpu_torch serve`` as a process."""
+    import asyncio
+    import csv
+    import datetime
+    import io
+    import os
+    import socket
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    from vtd_tpu_torch.core.config import settings
+    from vtd_tpu_torch.ops.cc_kernels import segmented_cc_round
+    from vtd_tpu_torch.serve import tasks
+    from vtd_tpu_torch.serve.app import create_app
+    from vtd_tpu_torch.serve.http import Server
+    from vtd_tpu_torch.serve.queue import task_queue
+    from vtd_tpu_torch.serve.services import StorageService
+
+    class NoLimit:  # polling must not meet the 5/min processing limit
+        def incr_window(self, key, window_s):
+            return 0
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="vtd_serve_")
+    settings.model_path = os.path.join(repo, "models")
+    settings.temp_dir = os.path.join(tmp, "temp")
+    settings.output_dir = os.path.join(tmp, "out")
+    settings.database_url = "sqlite://"
+    settings.device = "cuda"
+    clip = os.path.join(tmp, "clip.mp4")
+    n_src = write_serve_clip(np, clip)
+    n_frames = n_src // int(SERVE_FPS / settings.target_sample_fps)
+    content = open(clip, "rb").read()
+
+    t_start = time.perf_counter()
+    app = create_app(rate_limit_store=NoLimit(), storage_service=StorageService(
+        base_dir=os.path.join(tmp, "uploads")))
+    server = Server(app, "127.0.0.1", 0)
+    server.start_background()
+    api = Api(f"http://127.0.0.1:{server.port}")
+    try:
+        status, body, _ = wait_ready(api, 60.0)
+        ready_s = time.perf_counter() - t_start
+        if status != 200:
+            raise AssertionError(f"/health/ready {status}: {body[:400]!r}")
+        user = {"email": "smoke@example.com", "username": "smoke",
+                "password": "pw"}
+        api.json("POST", "/api/v1/auth/register", expect=201,
+                 data=json.dumps(user).encode(), ctype="application/json")
+        tok = api.json("POST", "/api/v1/auth/login", data=(
+            b"username=smoke&password=pw"),
+            ctype="application/x-www-form-urlencoded")["access_token"]
+        api.headers = {"Authorization": f"Bearer {tok}"}
+        if api.json("GET", "/api/v1/auth/me")["username"] != "smoke":
+            raise AssertionError("/auth/me is not the user")
+        # HTTP + JWT check + a user lookup, one request at a time
+        rtt = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            api.json("GET", "/api/v1/auth/me")
+            rtt.append(time.perf_counter() - t0)
+        http_ms = 1e3 * sorted(rtt)[len(rtt) // 2]
+        v1 = api.upload("clip.mp4", content)["id"]
+        v2 = api.upload("clip2.mp4", content)["id"]
+
+        reset_counts()
+        walls, rows = {}, {}
+        for name, vid, query in (
+            ("crnn", v1, {"use_transformer": "false"}),
+            ("trocr", v1, {"use_transformer": "true"}),
+            ("keyframe", v1, {"use_transformer": "false",
+                              "sample_mode": "keyframe"}),
+        ):
+            rows[name], walls[name] = api.wait(*api.detect(vid, **query))
+            if name == "crnn":  # the exports of the latest completed job
+                csv_text = api.json(
+                    "GET", f"/api/v1/processing/videos/{v1}/results",
+                    query={"format": "csv"})["content"]
+                xml_text = api.json(
+                    "GET", f"/api/v1/processing/videos/{v1}/results",
+                    query={"format": "xml"})["content"]
+                js = api.json("GET",
+                              f"/api/v1/processing/videos/{v1}/results")
+                status, annotated = api.call(
+                    "GET", f"/api/v1/processing/videos/{v1}/annotated")
+                if status != 200 or len(annotated) < 1000:
+                    raise AssertionError(f"annotated video: HTTP {status}")
+        # two jobs back to back: both worker threads, one pipeline
+        # singleton, one CUDA stream
+        kf2 = api.detect(v1, use_transformer="false", sample_mode="keyframe")
+        cr2 = api.detect(v2, use_transformer="false")
+        rows["keyframe2"], walls["keyframe2"] = api.wait(*kf2)
+        rows["crnn2"], walls["crnn2"] = api.wait(*cr2)
+        rows["crnn_warm"], walls["crnn_warm"] = api.wait(
+            *api.detect(v2, use_transformer="false"))
+        calls = segmented_cc_round.launches
+        cuda_calls = segmented_cc_round.cuda_launches
+        record_path(results, "serve_path")
+        if calls == 0:
+            raise AssertionError("no segmented_cc_round launch in the "
+                                 "served jobs")
+
+        res = {k: r["result_data"] for k, r in rows.items()}
+        n_det = {}
+        for name in ("crnn", "trocr", "crnn2", "crnn_warm"):
+            n_det[name] = check_served_texts(res[name], name, n_frames)
+        for name in ("keyframe", "keyframe2"):
+            frames = res[name]["results"]
+            dups = [f for f in frames if "duplicate_of" in f]
+            if not dups or len(dups) == len(frames):
+                raise AssertionError(f"{name}: {len(dups)} duplicates of "
+                                     f"{len(frames)} frames")
+            n_det[name] = check_served_texts(res[name], name, n_frames)
+        same_job_results(res["keyframe"], res["keyframe2"], "keyframe pair")
+        same_job_results(res["crnn"], res["crnn2"], "crnn pair")
+        n_kf = sum(1 for f in res["keyframe"]["results"]
+                   if "duplicate_of" not in f)
+
+        csv_rows = list(csv.reader(io.StringIO(csv_text)))
+        if (csv_rows[0][:3] != ["frame_number", "timestamp", "text"]
+                or len(csv_rows) - 1 != n_det["crnn"]):
+            raise AssertionError(f"csv export: {len(csv_rows) - 1} rows")
+        n_xml = len(ET.fromstring(xml_text).findall("frames/frame/object"))
+        if n_xml != n_det["crnn"]:
+            raise AssertionError(f"xml export: {n_xml} objects")
+        if js["summary"]["detected_texts"] != sorted(TRUTH):
+            raise AssertionError(f"json results {js['summary']}")
+
+        health = api.json("GET", "/health/detailed")
+        acc = health["checks"]["accelerator"]
+        if (acc.get("status") != "healthy" or acc.get("probe") != "cuda"
+                or acc.get("devices", [None])[0]
+                != torch.cuda.get_device_name(0)):
+            raise AssertionError(f"CUDA probe: {acc}")
+        _, metrics = api.call("GET", "/metrics")
+        metrics = metrics.decode()
+        n_inf = metric_value(metrics, 'model_inference_duration_seconds_count'
+                             '{model_type="DBNet-CRNN"}')
+        n_inf_tr = metric_value(metrics, 'model_inference_duration_seconds_'
+                                'count{model_type="transformer"}')
+        n_occ = metric_value(metrics, "recognizer_chunk_occupancy_count")
+        if min(n_inf, n_inf_tr, n_occ) <= 0:
+            raise AssertionError("pipeline counters did not count")
+
+        # the same clip straight through process_video on the same
+        # pipeline, in this run
+        pipe = tasks.get_pipeline(False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = asyncio.run(pipe.process_video(clip, ""))
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        check_served_texts(direct, "process_video", n_frames)
+    finally:
+        server.shutdown()
+        task_queue.shutdown()
+
+    def at(stamp):
+        return datetime.datetime.fromisoformat(stamp).timestamp()
+
+    # from the job row's own stamps (UTC; created_at to the millisecond):
+    # queue wait = started_at - created_at; the task around process_video
+    # (get_pipeline, the resume file, the DB writes) = completed_at -
+    # started_at - process_video's own time
+    server_side = {}
+    for k, r in rows.items():
+        pv = r["result_data"]["summary"]["processing_time_seconds"]
+        run = at(r["completed_at"]) - at(r["started_at"])
+        server_side[k] = (pv, at(r["started_at"]) - at(r["created_at"]),
+                          run - pv)
+    print(f"serve: /health/ready answered 200 {ready_s:.3f} s after the "
+          f"server was built (in process); GET /auth/me {http_ms:.3f} ms "
+          f"(median of 20); "
+          f"jobs over HTTP on the trained checkpoints, {n_frames} frames "
+          f"each of a {n_src}-frame 640x640 mp4v clip: every frame of the "
+          f"CRNN, TrOCR and keyframe jobs reads {sorted(TRUTH)}; keyframe "
+          f"jobs shipped {n_kf} keyframes and covered all {n_frames} "
+          f"frames; the two jobs run back to back equal their solo runs; "
+          f"CSV {len(csv_rows) - 1} rows, XML {n_xml} objects, annotated "
+          f"mp4 {len(annotated)} B; CUDA probe {acc['devices']}")
+    first = {"crnn": "; the first CRNN job, it builds the pipeline",
+             "trocr": "; the first TrOCR job, it builds the pipeline",
+             "keyframe2": "; beside crnn2", "crnn2": "; beside keyframe2"}
+    for name, wall in walls.items():
+        pv, queued, around = server_side[name]
+        print(f"serve job {name}: {wall * 1e3:.3f} ms from POST detect to "
+              f"'completed' (queued {queued * 1e3:.3f} ms, process_video "
+              f"{pv * 1e3:.3f} ms, the task around it {around * 1e3:.3f} ms"
+              f"{first.get(name, '')}), {n_frames / wall:.3f} frames/s "
+              f"through the service ({card})")
+    print(f"serve: the same clip straight through process_video "
+          f"{direct_s * 1e3:.3f} ms, {n_frames / direct_s:.3f} frames/s; "
+          f"warm CRNN job through the service "
+          f"{n_frames / walls['crnn_warm']:.3f} frames/s ({card})")
+    print(f"serve path: segmented_cc_round {calls} calls ({cuda_calls} CUDA "
+          f"launches) over the 6 jobs; /metrics counts "
+          f"{n_inf:.0f} CRNN and {n_inf_tr:.0f} TrOCR inference batches, "
+          f"{n_occ:.0f} recognizer chunks (the registry is the process's: "
+          f"every phase's pipelines count)")
+
+    # python -m vtd_tpu_torch serve, as a process, until it is ready
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, DATABASE_URL="sqlite://",
+               TEMP_DIR=os.path.join(tmp, "p_temp"),
+               OUTPUT_DIR=os.path.join(tmp, "p_out"),
+               MODEL_PATH=settings.model_path)
+    log = open(os.path.join(tmp, "serve.log"), "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vtd_tpu_torch", "serve", "--host",
+         "127.0.0.1", "--port", str(port)],
+        cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        status, body, _ = wait_ready(Api(f"http://127.0.0.1:{port}"), 90.0)
+        proc_ready_s = time.perf_counter() - t0
+        if status != 200:
+            raise AssertionError(f"serve process /health/ready {status}: "
+                                 f"{body[:400]!r}")
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        log.close()
+        print(open(os.path.join(tmp, "serve.log"), "rb").read()[-3000:]
+              .decode(errors="replace"), file=sys.stderr)
+        raise
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    log.close()
+    print(f"serve: `python -m vtd_tpu_torch serve` answered /health/ready "
+          f"200 {proc_ready_s:.3f} s after it was started (interpreter, "
+          f"torch import, CUDA probe), then stopped ({card})")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
-          "engine", "beam", "train")
+          "engine", "beam", "serve", "train")
 
 
 def main(argv=None) -> int:
@@ -1662,6 +2082,7 @@ def main(argv=None) -> int:
         "trained": lambda: trained_phase(torch, np, card, results, state),
         "engine": lambda: engine_phase(torch, np, card, results, state),
         "beam": lambda: beam_phase(torch, np, card, state),
+        "serve": lambda: serve_phase(torch, np, card, results),
         "train": lambda: train_phase(torch, np, card),
     }
     for name in PHASES:

@@ -145,7 +145,8 @@ def test_pipeline_takes_reference_recognizer_kwargs():
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
     pipe = VideoTextPipeline(
-        device="cpu", detector_input_size=160, batch_size=2,
+        device="cpu", use_transformer_ocr=False, detector_input_size=160,
+        batch_size=2,
         recognizer_kwargs={"pad_batch": 32, "beam_width": 4,
                            "decoder": "beam"},
     )

@@ -326,7 +326,8 @@ def test_loaders_take_every_reference_format(tmp_path):
     shutil.copy(tmp_path / "pkl" / "variables.pkl", tmp_path / "vars.pickle")
     torch.save(crnn_from_jax(tree), tmp_path / "crnn.pt")
     states = [
-        TextRecognizer(p, device="cpu").crnn.state_dict()
+        TextRecognizer(p, use_transformer=False, device="cpu")
+        .crnn.state_dict()
         for p in (orbax, str(tmp_path / "pkl"), str(tmp_path / "vars.pickle"),
                   str(tmp_path / "crnn.pt"))
     ]
@@ -380,7 +381,8 @@ def test_cuda_restore_onto_the_card(cuda_device):
     pipe = VideoTextPipeline(
         detector_path=det,
         recognizer_path=os.path.join(REPO, "models", "text_recognizer"),
-        batch_size=2, max_dets=64, transfer_format="yuv420",
+        use_transformer_ocr=False, batch_size=2, max_dets=64,
+        transfer_format="yuv420",
     )
     from vtd_tpu_torch.convert import dbnet_from_jax
 

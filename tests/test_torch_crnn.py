@@ -112,10 +112,11 @@ def test_recognizer_rejects_later_slices():
 
     # the beam decoder is ported (tests/test_torch_beam.py); an unknown
     # decoder still raises
-    rec = TextRecognizer(decoder="beam", beam_width=4, device="cpu")
+    rec = TextRecognizer(use_transformer=False, decoder="beam", beam_width=4,
+                         device="cpu")
     assert (rec.decoder, rec.beam_width) == ("beam", 4)
     with pytest.raises(ValueError, match="decoder"):
-        TextRecognizer(decoder="viterbi", device="cpu")
+        TextRecognizer(use_transformer=False, decoder="viterbi", device="cpu")
     # the transformer engine is ported: the facade builds it
     from vtd_tpu_torch.models.trocr import small_config
 
@@ -129,7 +130,7 @@ def test_recognizer_facade_on_ragged_crops():
     from vtd_tpu_torch.runtime import TextRecognizer
 
     rng = np.random.default_rng(0)
-    rec = TextRecognizer(device="cpu")
+    rec = TextRecognizer(use_transformer=False, device="cpu")
     crops = [
         rng.integers(0, 255, (40, 200, 3), np.uint8),
         rng.integers(0, 255, (20, 80), np.uint8),

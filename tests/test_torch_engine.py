@@ -20,7 +20,8 @@ def pipe():
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
     return VideoTextPipeline(
-        device="cpu", batch_size=BATCH, max_dets=16, detector_input_size=160,
+        device="cpu", use_transformer_ocr=False, batch_size=BATCH,
+        max_dets=16, detector_input_size=160,
         max_box_frac=1.0, confidence_threshold=0.3, transfer_format="yuv420",
         decode_backend="cv2",
     )
@@ -196,8 +197,8 @@ def test_closed_engine_fails_new_futures(pipe):
 def test_engine_builds_its_pipeline_on_the_card_by_default():
     from vtd_tpu_torch.runtime import InferenceEngine, VideoTextPipeline
 
-    engine = InferenceEngine(device="cpu", batch_size=2,
-                             detector_input_size=160)
+    engine = InferenceEngine(device="cpu", use_transformer_ocr=False,
+                             batch_size=2, detector_input_size=160)
     try:
         assert isinstance(engine.pipeline, VideoTextPipeline)
         assert engine.batch_size == 2
@@ -221,8 +222,8 @@ def test_cuda_engine_matches_process_batch(cuda_device):
     from vtd_tpu_torch.runtime import InferenceEngine, VideoTextPipeline
 
     pipe = VideoTextPipeline(
-        batch_size=BATCH, max_dets=16, detector_input_size=160,
-        max_box_frac=1.0, confidence_threshold=0.3,
+        use_transformer_ocr=False, batch_size=BATCH, max_dets=16,
+        detector_input_size=160, max_box_frac=1.0, confidence_threshold=0.3,
     )
     assert pipe.device.type == "cuda"
     streams = [_frames(s, BATCH, h=120 + 40 * s) for s in range(3)]

@@ -275,8 +275,8 @@ def test_process_single_frame_schema(text_image):
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
     pipe = VideoTextPipeline(
-        batch_size=1, max_dets=8, detector_input_size=160,
-        max_box_frac=1.0, device="cpu",
+        use_transformer_ocr=False, batch_size=1, max_dets=8,
+        detector_input_size=160, max_box_frac=1.0, device="cpu",
     )
     out = pipe.process_single_frame(text_image)
     assert "detections" in out and "error" not in out
@@ -322,7 +322,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"sample_mode": "keyframe"},
         {"parallel_mode": "two_stage"},
         {"mesh": object()},
     ],
@@ -343,7 +342,8 @@ def _port_files():
 
 
 def test_port_never_imports_jax():
-    banned = {"jax", "jaxlib", "flax", "orbax", "tensorstore", "vtd_tpu"}
+    banned = {"jax", "jaxlib", "flax", "orbax", "tensorstore", "vtd_tpu",
+              "prometheus_client"}
     files = _port_files()
     assert len(files) > 15
     for path in files:
@@ -374,7 +374,8 @@ def test_port_never_imports_jax():
         f"import importlib\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'orbax', 'tensorstore', 'vtd_tpu', 'cv2'))\n"
+        "('jax', 'flax', 'orbax', 'tensorstore', 'vtd_tpu', 'cv2', "
+        "'prometheus_client'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

@@ -17,6 +17,9 @@ the labelling rounds of the video paths) and ``neighbor_min_sweeps``
 the fourth slice: training on one card (``train/``: the DB loss and
 label maps, ``ModelTrainer``, ``RecognizerTrainer``, ``TrOCRTrainer``)
 and the command line (``python -m vtd_tpu_torch process | train-*``).
+Since the fifth: the REST service (``serve/``, ``obs/``,
+``core/config.py``, ``python -m vtd_tpu_torch serve``) with its
+in-process thread worker, and keyframe sampling through the cv2 gate.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

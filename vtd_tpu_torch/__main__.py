@@ -1,13 +1,14 @@
 """vtd_tpu_torch command-line interface (port of ``vtd_tpu/__main__.py``).
 
   python -m vtd_tpu_torch process <video> [--crnn] [--threshold 0.5] [--out r.json]
+  python -m vtd_tpu_torch serve [--host H] [--port P] [--device cuda|cpu]
   python -m vtd_tpu_torch train-detector ...    (see train/train_detector.py)
   python -m vtd_tpu_torch train-recognizer ...  (see train/train_recognizer.py)
   python -m vtd_tpu_torch train-trocr ...       (see train/trocr_trainer.py)
 
 Every command runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given. ``serve``, ``worker`` and ``brokerd`` are not
-ported yet (ROADMAP queue 1 item 5).
+``--device cpu`` is given. ``worker`` and ``brokerd`` are not ported yet
+(ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -16,10 +17,10 @@ import asyncio
 import json
 import sys
 
-SERVING_NOT_PORTED = (
-    "{} is not ported yet: serving waits for ROADMAP queue 1 item 5 "
-    "(serving wired to the port); `python -m vtd_tpu {}` runs the JAX "
-    "package's"
+BROKER_NOT_PORTED = (
+    "{} is not ported yet: it waits for the next slice of the port "
+    "(ROADMAP queue 1 item 9: the broker, brokerd and the process pool); "
+    "`python -m vtd_tpu_torch serve` runs the in-process thread worker"
 )
 MULTI_GPU_NOT_PORTED = (
     "--data-parallel and --two-stage wait for ROADMAP queue 1 item 7 "
@@ -44,15 +45,14 @@ def _cmd_process(argv):
                         help="detector input resolution")
     parser.add_argument("--sample-mode", default="stride",
                         choices=["stride", "keyframe"],
-                        help="keyframe waits for the native decode slice")
+                        help="keyframe ships only scene-change frames")
     parser.add_argument("--temporal-dedup", action="store_true",
                         help="cross-frame text tracks in the summary")
     parser.add_argument("--max-dets", type=int, default=64,
                         help="per-frame detection slot count")
     parser.add_argument("--out", default="", help="write JSON result here")
     parser.add_argument("--format", default="json",
-                        choices=["json", "csv", "xml"],
-                        help="csv and xml come with serving (not ported)")
+                        choices=["json", "csv", "xml"])
     parser.add_argument("--data-parallel", type=int, default=0, metavar="N",
                         help="not ported (multiple GPUs)")
     parser.add_argument("--two-stage", action="store_true",
@@ -60,10 +60,6 @@ def _cmd_process(argv):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    if args.format != "json":
-        print(SERVING_NOT_PORTED.format(f"--format {args.format}", "process"),
-              file=sys.stderr)
-        return 2
     if args.data_parallel or args.two_stage:
         print(MULTI_GPU_NOT_PORTED, file=sys.stderr)
         return 2
@@ -85,7 +81,16 @@ def _cmd_process(argv):
         device=args.device,
     )
     result = asyncio.run(pipeline.process_video(args.video, "."))
-    payload = json.dumps(result, indent=2, default=str)
+    if args.format == "json":
+        payload = json.dumps(result, indent=2, default=str)
+    else:
+        from .serve.services.processing_service import ProcessingService
+
+        svc = ProcessingService()
+        if args.format == "csv":
+            payload = asyncio.run(svc.export_results_csv(result))
+        else:
+            payload = asyncio.run(svc.export_results_xml(result))
     if args.out:
         with open(args.out, "w") as f:
             f.write(payload)
@@ -198,8 +203,12 @@ def main(argv=None):
     cmd, rest = argv[0], argv[1:]
     if cmd == "process":
         return _cmd_process(rest)
-    if cmd in ("serve", "worker", "brokerd"):
-        print(SERVING_NOT_PORTED.format(cmd, cmd), file=sys.stderr)
+    if cmd == "serve":
+        from .serve.app import main as serve_main
+
+        return serve_main(rest)
+    if cmd in ("worker", "brokerd"):
+        print(BROKER_NOT_PORTED.format(cmd), file=sys.stderr)
         return 2
     if cmd.startswith("train"):
         # per-epoch progress lines of the trainers' loggers

@@ -16,9 +16,15 @@ work is enqueued (apart from the labelling's convergence checks, which
 wait for the device) and the pack lands in pinned host memory behind an
 event.
 
-Not in this slice: keyframe sampling, multi-device meshes and the
-two-stage runner (each raises NotImplementedError), and the Prometheus
-counters.
+``sample_mode="keyframe"`` ships only the scene-change frames that the
+cv2 gate of ``video/processor.py`` keeps and gives each near-duplicate
+candidate its keyframe's detections. Every batch feeds the
+``model_inference_duration_seconds`` / ``model_batch_size`` histograms
+and every transformer chunk ``recognizer_chunk_occupancy``
+(``obs/metrics.py``).
+
+Not in this slice: multi-device meshes and the two-stage runner (each
+raises NotImplementedError).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.schemas import summarize
+from ..obs import metrics as _metrics
 from ..ops.crop import crop_and_resize_boxes_mm
 from ..ops.ctc import ctc_greedy_decode_arrays, emit_mask_np, ids_to_text
 from ..ops.db_postprocess import db_postprocess
@@ -70,7 +77,7 @@ class VideoTextPipeline:
         self,
         detector_path: Optional[str] = None,
         recognizer_path: Optional[str] = None,
-        use_transformer_ocr: bool = False,
+        use_transformer_ocr: bool = True,
         confidence_threshold: float = 0.5,
         min_recognition_confidence: float = 0.0,
         batch_size: int = 16,
@@ -93,11 +100,6 @@ class VideoTextPipeline:
         parallel_mode: str = "fused",
         device: str = "cuda",
     ):
-        if sample_mode != "stride":
-            raise NotImplementedError(
-                "sample_mode='keyframe' waits for the port's native libav "
-                "decode slice"
-            )
         if mesh is not None or parallel_mode != "fused":
             raise NotImplementedError(
                 "mesh and parallel_mode='two_stage' wait for the port's "
@@ -130,6 +132,10 @@ class VideoTextPipeline:
         self.decode_backend = decode_backend
         # Cross-frame text-track merging in the summary
         self.temporal_dedup = temporal_dedup
+        # 'keyframe' ships only scene-change keyframes to the device and
+        # propagates each keyframe's detections to the near-duplicate
+        # candidates it covers (video/processor.extract_frame_batches).
+        self.sample_mode = sample_mode
         self.use_transformer = use_transformer_ocr
         if use_transformer_ocr:
             tr = self.recognizer.transformer
@@ -342,11 +348,14 @@ class VideoTextPipeline:
         tr = self.recognizer.transformer
         outs = []
         for c0 in range(0, len(need), self.rec_chunk):
+            chunk = need[c0:c0 + self.rec_chunk]
             sel = torch.as_tensor(
-                need[c0:c0 + self.rec_chunk], dtype=torch.int64,
-                device=crops_flat.device,
+                chunk, dtype=torch.int64, device=crops_flat.device,
             )
             outs.append(tr.generate(crops_flat[sel]))
+            _metrics.recognizer_chunk_occupancy.observe(
+                len(chunk) / self.rec_chunk
+            )
         if not outs:
             return {}
         toks = torch.cat([t for t, _ in outs]).cpu().numpy()
@@ -372,6 +381,7 @@ class VideoTextPipeline:
         if orig_size is not None:
             h, w = orig_size
         size = self.detector.input_size
+        t0 = time.perf_counter()
         if handles is None:
             handles = self._dispatch_batch(
                 frames, valid_frames=valid_frames,
@@ -430,6 +440,13 @@ class VideoTextPipeline:
             decoded = ids_to_text(ctc["ids"][sel], ctc["emit"][sel])
             for kk, flat in enumerate(need):
                 texts[flat] = (decoded[kk], float(ctc["confidence"][flat]))
+        # from the collect of this batch to its last transcript (the
+        # reference's span, vtd_tpu/runtime/pipeline.py:616-723)
+        _metrics.metrics_collector.record_model_inference(
+            time.perf_counter() - t0,
+            "transformer" if self.use_transformer else "DBNet-CRNN",
+            b,
+        )
         min_rconf = (
             self.min_recognition_confidence
             if min_recognition_confidence is None
@@ -510,11 +527,7 @@ class VideoTextPipeline:
         import threading as _threading
 
         dedup = self.temporal_dedup if temporal_dedup is None else temporal_dedup
-        if sample_mode not in (None, "stride"):
-            raise NotImplementedError(
-                "sample_mode='keyframe' waits for the port's native libav "
-                "decode slice"
-            )
+        mode = self.sample_mode if sample_mode is None else sample_mode
         thr = (
             self.confidence_threshold
             if confidence_threshold is None
@@ -556,9 +569,13 @@ class VideoTextPipeline:
                 target_fps=self.target_fps,
                 resize_to=self.ship_dims(video_info),
                 pixel_format=self.transfer_format,
+                sample_mode=mode,
                 decode_workers=self.decode_workers,
                 decode_backend=self.decode_backend,
             )
+            # frame_number -> detections of keyframes, for propagation to
+            # the near-duplicate candidates each keyframe covers
+            kf_detections: Dict[int, List[Dict[str, Any]]] = {}
 
             async def collect(batch, handles):
                 nonlocal frame_count
@@ -572,7 +589,11 @@ class VideoTextPipeline:
                     if handles is not None
                     else None
                 )
-                nvalid = int(batch["valid"].sum())
+                nvalid = (
+                    int(batch["valid"].sum())
+                    if batch.get("frames") is not None
+                    else 0
+                )
                 for i in range(nvalid):
                     fn = int(batch["frame_numbers"][i])
                     if per_frame is None:
@@ -585,7 +606,28 @@ class VideoTextPipeline:
                         }
                         if ckpt_fh is not None:
                             ckpt_fh.write(_json.dumps(rec) + "\n")
+                    kf_detections[fn] = rec["detections"]
                     all_results.append(rec)
+                # Keyframe mode: each near-duplicate candidate inherits
+                # its keyframe's detections (the gate found the
+                # downsampled frames alike), so results cover every
+                # stride candidate without device work for the dups.
+                for fn, ts, ref in batch.get("dups") or []:
+                    if fn in done_frames:
+                        rec = done_frames[fn]
+                    else:
+                        rec = {
+                            "frame_number": int(fn),
+                            "timestamp": float(ts),
+                            "detections": [
+                                dict(d) for d in kf_detections.get(ref, [])
+                            ],
+                            "duplicate_of": int(ref),
+                        }
+                        if ckpt_fh is not None:
+                            ckpt_fh.write(_json.dumps(rec) + "\n")
+                    all_results.append(rec)
+                    frame_count += 1
                 if ckpt_fh is not None and per_frame is not None:
                     ckpt_fh.flush()
                 frame_count += nvalid
@@ -605,7 +647,7 @@ class VideoTextPipeline:
             def dispatcher():
                 try:
                     for batch in batches:
-                        already_done = all(
+                        already_done = batch.get("frames") is None or all(
                             int(fn) in done_frames
                             for fn, v in zip(
                                 batch["frame_numbers"], batch["valid"]
@@ -650,6 +692,8 @@ class VideoTextPipeline:
                     except _queue.Empty:
                         break
                 disp_t.join(timeout=10.0)
+            # dups follow their keyframe's batch, and parallel segment
+            # decode interleaves batches: restore frame order
             all_results.sort(key=lambda r: r["frame_number"])
             processing_time = time.time() - start_time
             summary = summarize(all_results, processing_time, frame_count)

@@ -33,8 +33,7 @@ class TextRecognizer:
     ``variables.pkl``, both converted with ``convert.crnn_from_jax`` /
     ``convert.trocr_from_jax``), or a torch-format ``.pth``/``.pt`` state
     dict of the port's model; without one, weights are drawn from
-    ``seed``. ``use_transformer`` defaults to False here (the reference
-    defaults to True) until serving is wired to the port.
+    ``seed``. ``use_transformer`` defaults to True, as in the reference.
 
     ``pad_batch`` is accepted for the reference's keywords and ignored:
     it pads to XLA compile buckets, which PyTorch does not have.
@@ -45,7 +44,7 @@ class TextRecognizer:
     def __init__(
         self,
         model_path: Optional[str] = None,
-        use_transformer: bool = False,
+        use_transformer: bool = True,
         pad_batch: int = 128,
         seed: int = 0,
         transformer_config=None,

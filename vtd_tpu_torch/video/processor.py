@@ -4,9 +4,10 @@
 ``extract_frame_batches`` yields fixed-size uint8 frame batches (tail
 padded by repeating the last frame, ``valid`` marking real slots),
 decoded in background threads. Frames can be resized on the host and
-shipped I420-packed. ``cv2`` is imported inside the functions that need
-it. The native libav decoder and keyframe sampling wait for a later
-slice of the port.
+shipped I420-packed, and ``sample_mode="keyframe"`` ships only
+scene-change frames through the reference's cv2 gate. ``cv2`` is
+imported inside the functions that need it. The native libav decoder
+(and its in-decoder keyframe gate) waits for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -119,6 +120,18 @@ class VideoProcessor:
         finally:
             cap.release()
 
+    @staticmethod
+    def _keyframe_signature(frame: np.ndarray) -> np.ndarray:
+        """Tiny grayscale thumbnail used for scene-change detection."""
+        import cv2
+
+        luma = frame if frame.ndim == 2 else cv2.cvtColor(
+            frame, cv2.COLOR_BGR2GRAY
+        )
+        return cv2.resize(
+            luma, (64, 36), interpolation=cv2.INTER_AREA
+        ).astype(np.int16)
+
     def extract_frame_batches(
         self,
         video_path: str,
@@ -127,16 +140,28 @@ class VideoProcessor:
         prefetch: int = 2,
         resize_to: Optional[int | Tuple[int, int]] = None,
         pixel_format: str = "bgr",
+        sample_mode: str = "stride",
+        keyframe_diff: float = 4.0,
+        keyframe_max_gap: Optional[int] = None,
         decode_workers: int = 1,
         decode_backend: str = "auto",
     ) -> Generator[Dict[str, Any], None, None]:
-        """Yield {'frames': [B,H,W,3] or I420 [B,H*3/2,W] uint8,
-        'frame_numbers', 'timestamps', 'valid', 'orig_size', 'pixel_format'}
-        batches of exactly ``batch_size`` frames.
+        """Yield {'frames': [B,H,W,3] or I420 [B,H*3/2,W] uint8 or None,
+        'frame_numbers', 'timestamps', 'valid', 'orig_size', 'pixel_format',
+        'dups'} batches of exactly ``batch_size`` frames.
 
         ``resize_to``: an int (square) or (w, h) host-side resize;
         ``decode_workers`` > 1 decodes contiguous segments concurrently.
         ``decode_backend`` 'auto' and 'cv2' both decode with cv2 here.
+
+        ``sample_mode``: 'stride' ships every stride candidate; 'keyframe'
+        ships only scene-change keyframes: a candidate whose 64x36
+        grayscale mean abs diff from the last shipped keyframe is below
+        ``keyframe_diff``, and that is fewer than ``keyframe_max_gap``
+        candidates after it (default ~2 s worth), goes into the next
+        batch's ``dups`` list as ``(frame_number, timestamp,
+        ref_frame_number)`` instead. A trailing dup-only batch has
+        ``frames=None``.
         """
         if decode_backend not in ("auto", "cv2"):
             raise NotImplementedError(
@@ -147,6 +172,7 @@ class VideoProcessor:
 
         q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         stop = threading.Event()
+        max_gap = keyframe_max_gap or max(1, int(2 * target_fps))
         resize_wh: Optional[Tuple[int, int]] = (
             None if resize_to is None
             else (resize_to, resize_to) if isinstance(resize_to, int)
@@ -181,11 +207,16 @@ class VideoProcessor:
             buf_frames: List[np.ndarray] = []
             buf_nums: List[int] = []
             buf_ts: List[float] = []
+            buf_dups: List[Tuple[int, float, int]] = []
             orig_size: List[Tuple[int, int]] = []
 
             def flush():
                 n = len(buf_frames)
-                if n == 0:
+                if n == 0 and not buf_dups:
+                    return
+                if n == 0:  # trailing duplicates with no keyframe left
+                    put({"frames": None, "dups": list(buf_dups)})
+                    buf_dups.clear()
                     return
                 pad = batch_size - n
                 valid = np.zeros(batch_size, bool)
@@ -202,18 +233,32 @@ class VideoProcessor:
                         "valid": valid,
                         "orig_size": orig_size[0],
                         "pixel_format": pixel_format,
+                        "dups": list(buf_dups),
                     }
                 )
                 buf_frames.clear()
                 buf_nums.clear()
                 buf_ts.clear()
+                buf_dups.clear()
 
+            last_sig: Optional[np.ndarray] = None
+            last_kf = -1
+            since_kf = 0
             for frame, idx, ts in self._segment_candidates(
                 video_path, target_fps, src_range,
                 strict=src_range is not None,
             ):
                 if stop.is_set():
                     return
+                if sample_mode == "keyframe":
+                    sig = self._keyframe_signature(frame)
+                    if last_sig is not None and since_kf < max_gap:
+                        diff = float(np.abs(sig - last_sig).mean())
+                        if diff < keyframe_diff:
+                            since_kf += 1
+                            buf_dups.append((idx, ts, last_kf))
+                            continue
+                    last_sig, last_kf, since_kf = sig, idx, 0
                 if not orig_size:
                     orig_size.append(frame.shape[:2])
                 if resize_wh is not None and frame.shape[:2] != (
