@@ -66,6 +66,24 @@ any error:
              ``process_video`` for comparison; then ``python -m
              vtd_tpu_torch serve`` as a process until ``/health/ready``
              answers;
+  fleet      the serving fleet: ``python -m vtd_tpu_torch brokerd --port
+             0`` and one ``python -m vtd_tpu_torch worker --broker
+             tcp://...`` as processes on the card behind the port's
+             ``Server`` (its own queue drains nothing), a CRNN, a TrOCR
+             and a warm CRNN job posted with ``APIClient``; then the same
+             ``Server`` on the process pool (concurrency 2,
+             ``max_tasks_per_child=2``): two jobs at once in two children,
+             a job on a long clip cancelled mid-run (its child SIGKILLed),
+             a respawned child completing a job, a recycle; every job reads
+             HELLO / WORLD / 123 and ``segmented_cc_round`` is counted in
+             the process that ran the job (this file's
+             ``PROCESS_VIDEO_TASK``, which the worker takes through
+             ``worker_main``), ``neighbor_min_sweeps`` too; the first job
+             waits in the queue before the worker starts; no process left
+             running;
+             then one ``process_video`` with ``profile_dir``, whose trace
+             must name the labelling kernels and a cuDNN convolution, its
+             results equal to the runs without it;
   train      the port's training at full width: the DBNet step (640x640,
              batch 8, float32), the CRNN step (batch 32, CTC on the card),
              the TrOCR demo step (batch 32) and the default TrOCRConfig's
@@ -1785,17 +1803,24 @@ def metric_value(text: str, sample: str) -> float:
     raise AssertionError(f"/metrics has no sample {sample}")
 
 
-def serve_phase(torch, np, card, results):
+def serve_phase(torch, np, card, results, state):
     """The port's REST service on the card: the in-process server with its
     thread worker, driven over HTTP through jobs on the trained
-    checkpoints; then ``python -m vtd_tpu_torch serve`` as a process."""
+    checkpoints; then ``python -m vtd_tpu_torch serve`` as a process.
+    Its clips, logs and outputs live in a directory removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtd_serve_") as tmp:
+        run_serve(torch, np, card, results, state, tmp)
+
+
+def run_serve(torch, np, card, results, state, tmp):
     import asyncio
     import csv
     import datetime
     import io
     import os
     import socket
-    import tempfile
     import xml.etree.ElementTree as ET
 
     from vtd_tpu_torch.core.config import settings
@@ -1811,7 +1836,6 @@ def serve_phase(torch, np, card, results):
             return 0
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="vtd_serve_")
     settings.model_path = os.path.join(repo, "models")
     settings.temp_dir = os.path.join(tmp, "temp")
     settings.output_dir = os.path.join(tmp, "out")
@@ -1978,6 +2002,7 @@ def serve_phase(torch, np, card, results):
               f"{pv * 1e3:.3f} ms, the task around it {around * 1e3:.3f} ms"
               f"{first.get(name, '')}), {n_frames / wall:.3f} frames/s "
               f"through the service ({card})")
+    state["serve_warm_crnn_s"] = walls["crnn_warm"]
     print(f"serve: the same clip straight through process_video "
           f"{direct_s * 1e3:.3f} ms, {n_frames / direct_s:.3f} frames/s; "
           f"warm CRNN job through the service "
@@ -2027,8 +2052,394 @@ def serve_phase(torch, np, card, results):
           f"torch import, CUDA probe), then stopped ({card})")
 
 
+FLEET_LONG_SECONDS = 15  # the job cancelled mid-run: 150 sampled frames
+
+
+class CountingVideoTask:
+    """The service's ``process_video_task`` as a ``worker`` process or a
+    pool child runs it (``worker_main`` / ``TaskQueue(tasks_module=
+    "chip_smoke")`` find it by its ``name`` and ``fn``): its return gains
+    the pid and both kernels' counts around the job, which live in that
+    process, not in this one."""
+
+    name = "process_video_task"
+
+    @staticmethod
+    def fn(task, video_id, config):
+        import os
+
+        from vtd_tpu_torch.ops.cc_kernels import (
+            neighbor_min_sweeps, segmented_cc_round,
+        )
+        from vtd_tpu_torch.serve.tasks import process_video_task
+
+        counters = (segmented_cc_round, neighbor_min_sweeps)
+        before = [(k.launches, k.cuda_launches) for k in counters]
+        out = process_video_task.fn(task, video_id, config)
+        seg, sweeps = [(k.launches - a, k.cuda_launches - b)
+                       for k, (a, b) in zip(counters, before)]
+        return dict(out, pid=os.getpid(),
+                    segmented_calls=seg[0], segmented_cuda_launches=seg[1],
+                    sweeps_calls=sweeps[0], sweeps_cuda_launches=sweeps[1])
+
+
+PROCESS_VIDEO_TASK = CountingVideoTask()
+
+# ``python -c WORKER_CODE <worker arguments>``, from the repo's root
+WORKER_CODE = "import sys, chip_smoke; sys.exit(chip_smoke.worker_main())"
+
+
+def worker_main() -> int:
+    """``python -m vtd_tpu_torch worker`` with this file's
+    ``PROCESS_VIDEO_TASK`` in place of the service's task of that name."""
+    from vtd_tpu_torch.__main__ import main
+    from vtd_tpu_torch.serve import tasks  # noqa: F401  registered first
+    from vtd_tpu_torch.serve.queue import task_queue
+
+    task_queue.tasks[PROCESS_VIDEO_TASK.name] = PROCESS_VIDEO_TASK
+    return main(["worker", *sys.argv[1:]])
+
+
+def pid_alive(pid: int) -> bool:
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def wait_until(pred, what: str, deadline_s: float = JOB_DEADLINE_S):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"{what}: not within {deadline_s} s")
+        time.sleep(0.02)
+
+
+def fleet_phase(torch, np, card, results, state):
+    """The serving fleet on the card: ``brokerd`` and a ``worker`` process
+    behind the port's ``Server``, then the process pool whose children
+    each own a CUDA context, then the profiler's trace. Its clips, logs,
+    database and traces live in a directory removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtd_fleet_") as tmp:
+        run_fleet(torch, np, card, results, state, tmp)
+
+
+def run_fleet(torch, np, card, results, state, tmp):
+    import asyncio
+    import datetime
+    import glob
+    import multiprocessing
+    import os
+    import re
+    import statistics
+    import urllib.request
+
+    from vtd_tpu_torch.core.config import settings
+    from vtd_tpu_torch.frontend.client import APIClient
+    from vtd_tpu_torch.runtime import VideoTextPipeline
+    from vtd_tpu_torch.serve.app import create_app
+    from vtd_tpu_torch.serve.brokerd import TcpBroker
+    from vtd_tpu_torch.serve.db import database
+    from vtd_tpu_torch.serve.http import Server
+    from vtd_tpu_torch.serve.queue import AsyncResult, task_queue
+    from vtd_tpu_torch.serve.services import StorageService
+
+    class NoLimit:  # polling must not meet the 5/min processing limit
+        def incr_window(self, key, window_s):
+            return 0
+
+    # the service and the broker are on 127.0.0.1: no proxy for urllib
+    urllib.request.install_opener(
+        urllib.request.build_opener(urllib.request.ProxyHandler({})))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {"DATABASE_URL": f"sqlite:///{tmp}/vtd.db",
+           "TEMP_DIR": os.path.join(tmp, "temp"),
+           "OUTPUT_DIR": os.path.join(tmp, "out"),
+           "MODEL_PATH": os.path.join(repo, "models"), "DEVICE": "cuda"}
+    os.environ.update(env)  # pool children read their settings from it
+    for k, v in env.items():
+        setattr(settings, k.lower(), v)
+    database.get_database(env["DATABASE_URL"])
+    clip = os.path.join(tmp, "clip.mp4")
+    n_src = write_serve_clip(np, clip)
+    n_frames = n_src // int(SERVE_FPS / settings.target_sample_fps)
+    long_clip = os.path.join(tmp, "long.mp4")
+    import cv2
+
+    frame = verify_frames(np)["frame_bgr"]
+    writer = cv2.VideoWriter(long_clip, cv2.VideoWriter_fourcc(*"mp4v"),
+                             SERVE_FPS, (640, 640))
+    for _ in range(int(SERVE_FPS * FLEET_LONG_SECONDS)):
+        writer.write(frame)
+    writer.release()
+
+    procs, logs = {}, {}
+
+    def start(name, args):
+        logs[name] = os.path.join(tmp, f"{name}.log")
+        with open(logs[name], "wb") as fh:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, *args], cwd=repo, env=dict(os.environ),
+                stdout=fh, stderr=subprocess.STDOUT), time.time())
+
+    def tail(name):
+        return open(logs[name], errors="replace").read()[-3000:]
+
+    def job_times(row):
+        def at(stamp):
+            return datetime.datetime.fromisoformat(stamp).replace(
+                tzinfo=datetime.timezone.utc).timestamp()
+        return at(row["started_at"]), at(row["completed_at"])
+
+    server = None
+    rows, walls, counts = {}, {}, {}
+    try:
+        # -- brokerd + one worker process, the API drains nothing ------
+        start("brokerd", ["-m", "vtd_tpu_torch", "brokerd", "--host",
+                          "127.0.0.1", "--port", "0"])
+        m = None
+        t0 = time.perf_counter()
+        while m is None:
+            m = re.search(r"listening on 127\.0\.0\.1:(\d+)",
+                          open(logs["brokerd"]).read())
+            if procs["brokerd"][0].poll() is not None or \
+                    time.perf_counter() - t0 > 60:
+                raise AssertionError(f"brokerd: {tail('brokerd')}")
+            time.sleep(0.02)
+        broker_url = f"tcp://127.0.0.1:{m[1]}"
+        broker = TcpBroker("127.0.0.1", int(m[1]), worker_id="smoke")
+        rtt = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            if not broker.ping():
+                raise AssertionError("brokerd did not answer ping")
+            rtt.append(time.perf_counter() - t0)
+        rpc_ms = 1e3 * statistics.median(rtt)
+        if task_queue.stats()["workers"]:
+            raise AssertionError("thread workers still drain this queue")
+        task_queue.broker = broker
+        task_queue.concurrency = 0
+        server = Server(create_app(
+            start_worker=False, rate_limit_store=NoLimit(),
+            storage_service=StorageService(
+                base_dir=os.path.join(tmp, "uploads"))), "127.0.0.1", 0)
+        server.start_background()
+        api = APIClient(f"http://127.0.0.1:{server.port}", timeout=60.0)
+        if not (api.register("fleet@example.com", "fleet", "pw")
+                and api.login("fleet", "pw")):
+            raise AssertionError("register / login failed")
+        content = open(clip, "rb").read()
+        v1 = api.upload_video("clip.mp4", content)["id"]
+        v2 = api.upload_video("clip2.mp4", content)["id"]
+        v3 = api.upload_video("long.mp4", open(long_clip, "rb").read())["id"]
+
+        def run(label, video_id, transformer=False):
+            t0 = time.perf_counter()
+            job = api.start_processing(video_id, use_transformer=transformer)
+            if job is None:
+                raise AssertionError(f"{label}: detect refused")
+            return label, job, t0
+
+        def finish(label, job, t0):
+            """Wait for the job row to read 'completed'; keep the row and
+            the task's return (pid and kernel counts of its process)."""
+            st = api.wait_for_job(job["id"], timeout=JOB_DEADLINE_S,
+                                  poll=0.02)
+            walls[label] = time.perf_counter() - t0
+            if st is None or st["status"] != "completed":
+                raise AssertionError(f"{label}: {st}")
+            rows[label] = api._request(
+                "GET", f"/api/v1/processing/jobs/{job['id']}")[1]
+            # the task returns just after it writes 'completed'
+            counts[label] = AsyncResult(job["celery_task_id"],
+                                        task_queue).get(JOB_DEADLINE_S)
+
+        # the first job waits in the queue before the worker starts: its
+        # start is the worker's time to its first claim
+        first = run("tcp_crnn", v1)
+        start("worker", ["-c", WORKER_CODE, "--broker", broker_url,
+                         "--concurrency", "1"])
+        finish(*first)
+        for label, video_id, transformer in (
+                ("tcp_trocr", v1, True), ("tcp_crnn_warm", v2, False)):
+            finish(*run(label, video_id, transformer))
+            if procs["worker"][0].poll() is not None:
+                raise AssertionError(f"worker died: {tail('worker')}")
+        worker_pid = counts["tcp_crnn"]["pid"]
+        first_claim_s = job_times(rows["tcp_crnn"])[0] - procs["worker"][1]
+        if {c["pid"] for k, c in counts.items()} != {worker_pid} or \
+                worker_pid == os.getpid():
+            raise AssertionError(f"jobs did not run in the worker: {counts}")
+
+        # -- the process pool: children with their own CUDA contexts ---
+        task_queue.broker = None
+        task_queue.worker_kind = "process"
+        task_queue.tasks_module = "chip_smoke"
+        task_queue.concurrency = 2
+        task_queue.max_tasks_per_child = 2
+        t_pool = time.time()
+        for j in [run("pool_a", v1), run("pool_b", v2)]:
+            finish(*j)
+        spawn_to_started_s = min(job_times(rows[k])[0]
+                                 for k in ("pool_a", "pool_b")) - t_pool
+        first_pids = {counts[k]["pid"] for k in ("pool_a", "pool_b")}
+        if len(first_pids) != 2 or os.getpid() in first_pids:
+            raise AssertionError(f"the pair ran in {first_pids}")
+        for k in ("pool_a", "pool_b"):
+            same_job_results(rows["tcp_crnn"]["result_data"],
+                             rows[k]["result_data"], f"{k} against tcp")
+        # a job on the long clip, killed once it is running on the card
+        label, job, _ = run("pool_long", v3)
+        wait_until(lambda: ((api.get_job_status(job["id"]) or {}).get(
+            "processed_frames") or 0) > 0, "the long job's first batch")
+        rec = task_queue.records[job["celery_task_id"]]
+        t_kill = time.time()
+        if not api.cancel_job(job["id"]):
+            raise AssertionError("cancel refused")
+        st = api.get_job_status(job["id"])
+        if st["status"] != "cancelled" or rec.state != "REVOKED":
+            raise AssertionError(f"cancelled job: {st}, {rec.state}")
+        killed = [p for p in first_pids if not pid_alive(p)]
+        if len(killed) != 1:
+            raise AssertionError(f"no child was killed: {first_pids}")
+        # both children busy: the respawned one must take a job
+        for j in [run("pool_c", v1), run("pool_d", v2)]:
+            finish(*j)
+        pids2 = {counts[k]["pid"] for k in ("pool_c", "pool_d")}
+        fresh = pids2 - first_pids
+        if len(fresh) != 1:
+            raise AssertionError(f"no respawned child ran: {pids2}")
+        (fresh_pid,) = fresh
+        fresh_label = next(k for k in ("pool_c", "pool_d")
+                           if counts[k]["pid"] == fresh_pid)
+        kill_to_ready_s = job_times(rows[fresh_label])[0] - t_kill
+        (survivor,) = first_pids - set(killed)
+        # the survivor ran its 2nd job: max_tasks_per_child recycles it
+        wait_until(lambda: not pid_alive(survivor), "the recycle")
+        finish(*run("pool_warm", v1))
+        warm_pid = counts["pool_warm"]["pid"]
+        pool_warm_is_warm = warm_pid == fresh_pid
+        for k in ("pool_c", "pool_d", "pool_warm"):
+            check_served_texts(rows[k]["result_data"], k, n_frames)
+        for k in ("tcp_crnn", "tcp_trocr", "tcp_crnn_warm"):
+            check_served_texts(rows[k]["result_data"], k, n_frames)
+    finally:
+        if server is not None:
+            server.shutdown()
+        task_queue.shutdown()
+        for name, (proc, _) in procs.items():
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    calls, cuda, sweeps, sweeps_cuda = (
+        sum(c[key] for c in counts.values())
+        for key in ("segmented_calls", "segmented_cuda_launches",
+                    "sweeps_calls", "sweeps_cuda_launches"))
+    per_job = {k: c["segmented_calls"] for k, c in counts.items()}
+    if min(per_job.values()) <= 0:
+        raise AssertionError(f"a fleet job launched no segmented_cc_round: "
+                             f"{per_job}")
+    record_launches(results, "segmented_cc_round", "launches_fleet_path",
+                    calls)
+    record_launches(results, "segmented_cc_round", "cuda_launches_fleet_path",
+                    cuda)
+    record_launches(results, "neighbor_min_sweeps", "launches_fleet_path",
+                    sweeps)
+    record_launches(results, "neighbor_min_sweeps",
+                    "cuda_launches_fleet_path", sweeps_cuda)
+
+    print(f"fleet: brokerd RPC round trip {rpc_ms:.3f} ms (ping, median of "
+          f"50); worker process start to its first claim (a job pending "
+          f"before it started) {first_claim_s:.3f} s; pool child spawn to its first job "
+          f"started {spawn_to_started_s:.3f} s; kill to the respawned "
+          f"child's first job started {kill_to_ready_s:.3f} s ({card})")
+    serve_warm = state.get("serve_warm_crnn_s")
+    for label in ("tcp_crnn", "tcp_trocr", "tcp_crnn_warm", "pool_a",
+                  "pool_b", "pool_c", "pool_d", "pool_warm"):
+        pv = rows[label]["result_data"]["summary"]["processing_time_seconds"]
+        started, done = job_times(rows[label])
+        print(f"fleet job {label}: {walls[label] * 1e3:.3f} ms from POST "
+              f"detect to 'completed' (process_video {pv * 1e3:.3f} ms, "
+              f"task {(done - started) * 1e3:.3f} ms), pid "
+              f"{counts[label]['pid']}, segmented_cc_round "
+              f"{counts[label]['segmented_calls']} calls "
+              f"({counts[label]['segmented_cuda_launches']} CUDA launches) "
+              f"counted in that process ({card})")
+    print(f"fleet: warm CRNN job POST to 'completed' through tcp:// "
+          f"{walls['tcp_crnn_warm'] * 1e3:.3f} ms, through the pool "
+          f"{walls['pool_warm'] * 1e3:.3f} ms"
+          f"{'' if pool_warm_is_warm else ' (landed on a cold child)'}, "
+          f"thread worker (serve phase, this run) "
+          + (f"{serve_warm * 1e3:.3f} ms" if serve_warm else "not run")
+          + f" ({card})")
+    print(f"fleet path: segmented_cc_round {calls} calls ({cuda} CUDA "
+          f"launches), neighbor_min_sweeps {sweeps} calls ({sweeps_cuda} "
+          f"CUDA launches) over {len(counts)} completed jobs, counted in the "
+          f"worker process and the pool children; the cancelled job's "
+          f"child was SIGKILLed mid-video (pid {killed[0]}), the child "
+          f"that ran its 2nd job was recycled (pid {survivor}), the "
+          f"respawned child (pid {fresh_pid}) completed on the card")
+    left = [p.pid for p, _ in procs.values() if p.poll() is None]
+    left += [c.pid for c in multiprocessing.active_children()]
+    left += sorted({c["pid"] for c in counts.values() if pid_alive(c["pid"])})
+    if left:
+        raise AssertionError(f"processes left running: {left}")
+    print("fleet: no worker or pool child left running")
+
+    # -- the profiler's trace of one process_video on the card ----------
+    pipe = VideoTextPipeline(
+        detector_path=os.path.join(repo, CHECKPOINTS["detector"]),
+        recognizer_path=os.path.join(repo, CHECKPOINTS["crnn"]),
+        use_transformer_ocr=False,
+        device="cuda")
+    trace_dir = os.path.join(tmp, "trace")
+    asyncio.run(pipe.process_video(clip, ""))  # warm
+    times, outs = {}, {}
+    # the first traced call also starts the profiler (CUPTI) in this
+    # process; the second is the steady cost
+    for name in ("plain", "traced", "traced2", "plain2"):
+        pipe.profile_dir = trace_dir if name.startswith("traced") else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = asyncio.run(pipe.process_video(clip, ""))
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    paths = sorted(glob.glob(os.path.join(trace_dir, "process_video-*.json")))
+    if len(paths) != 2:
+        raise AssertionError(f"traces: {paths}")
+    events = json.load(open(paths[-1]))["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    ours = [k for k in kernels if "strip_kernel" in k or "diag_kernel" in k]
+    cudnn = [k for k in kernels if "cublas" not in k.lower() and re.search(
+        r"cudnn|fprop|conv", k, re.I)]
+    if len(ours) != 2 or not cudnn:
+        raise AssertionError(f"the trace misses the card's kernels: "
+                             f"{kernels}")
+    for name in ("traced", "traced2", "plain2"):
+        same_job_results(outs["plain"], outs[name], f"profiler {name}")
+    check_served_texts(outs["traced2"], "traced process_video", n_frames)
+    print(f"fleet profiler: process_video {times['plain'] * 1e3:.3f} / "
+          f"{times['plain2'] * 1e3:.3f} ms without the profiler, "
+          f"{times['traced'] * 1e3:.3f} ms with it (the process's first "
+          f"trace) and {times['traced2'] * 1e3:.3f} ms (its second); "
+          f"traces {[os.path.getsize(p) for p in paths]} B, the second "
+          f"{len(events)} events, {len(kernels)} kernel names, among them "
+          f"{[re.search(r'(strip|diag)_kernel', k)[0] for k in ours]} and "
+          f"{len(cudnn)} of cuDNN's convolutions, e.g. {cudnn[:2]}; "
+          f"results equal ({card})")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
-          "engine", "beam", "serve", "train")
+          "engine", "beam", "serve", "fleet", "train")
 
 
 def main(argv=None) -> int:
@@ -2082,7 +2493,8 @@ def main(argv=None) -> int:
         "trained": lambda: trained_phase(torch, np, card, results, state),
         "engine": lambda: engine_phase(torch, np, card, results, state),
         "beam": lambda: beam_phase(torch, np, card, state),
-        "serve": lambda: serve_phase(torch, np, card, results),
+        "serve": lambda: serve_phase(torch, np, card, results, state),
+        "fleet": lambda: fleet_phase(torch, np, card, results, state),
         "train": lambda: train_phase(torch, np, card),
     }
     for name in PHASES:

@@ -655,35 +655,41 @@ def test_serve_exits_nonzero_without_cuda(tmp_path):
     assert "CUDA is not available" in res.stderr, res.stderr
 
 
-@pytest.mark.parametrize("url,exc", [
-    ("file:///shared/q", NotImplementedError),
-    ("tcp://broker:5679", NotImplementedError),
-    ("redis://localhost:6379/0", ValueError),
-])
-def test_non_local_brokers_raise(url, exc, monkeypatch):
+@pytest.mark.parametrize("url", ["redis://localhost:6379/0",
+                                 "amqp://guest@localhost//"])
+def test_non_local_brokers_raise(url, monkeypatch):
+    """Schemes that are no broker of the port raise; ``file://`` and
+    ``tcp://`` build brokers (tests/test_torch_broker.py)."""
     from vtd_tpu_torch.core.config import settings
     from vtd_tpu_torch.serve import queue
 
     monkeypatch.setattr(settings, "celery_broker_url", url)
-    with pytest.raises(exc, match="next slice" if exc is
-                       NotImplementedError else "unsupported"):
+    with pytest.raises(ValueError, match="unsupported"):
         queue._broker_from_settings()
     monkeypatch.setattr(settings, "celery_broker_url", "local://")
     assert queue._broker_from_settings() is None
 
 
-def test_process_worker_pool_raises(monkeypatch):
+def test_process_worker_pool_from_settings(monkeypatch):
+    """``WORKER_POOL=process`` gives a queue whose tasks run in a spawned
+    child (the pool's cases: tests/test_torch_procworker.py)."""
+    import torch_proc_tasks
     from vtd_tpu_torch.core.config import settings
     from vtd_tpu_torch.serve import queue
 
     monkeypatch.setattr(settings, "worker_pool", "process")
-    with pytest.raises(NotImplementedError, match="process pool"):
-        queue.TaskQueue(worker_kind=queue._worker_kind_from_settings())
+    q = queue.TaskQueue(worker_kind=queue._worker_kind_from_settings(),
+                        tasks_module="torch_proc_tasks", concurrency=1)
+    q.task(name="whoami")(torch_proc_tasks.whoami.fn)
+    try:
+        assert q.tasks["whoami"].delay().get(timeout=180) != os.getpid()
+        assert q.stats()["workers"] == 1
+    finally:
+        q.shutdown()
 
 
 @pytest.mark.parametrize("key,value,slice_name", [
     ("data_parallel_chips", 2, "multi-GPU"),
-    ("profile_trace_dir", "/tmp/trace", "profiling"),
 ])
 def test_later_slice_settings_raise(key, value, slice_name, monkeypatch):
     from vtd_tpu_torch.core.config import settings

@@ -298,15 +298,16 @@ def test_cli_train_trocr(tmp_path, capsys):
             cfg["dtype"]) == (32, 1, 32, "float32")
 
 
-@pytest.mark.parametrize("argv", [["serve"], ["worker"], ["brokerd"],
+@pytest.mark.parametrize("argv", [["serve"], ["worker"],
                                   ["process", "x.mp4", "--data-parallel", "2"],
                                   ["process", "x.mp4", "--two-stage"]])
 def test_cli_not_ported_commands_exit_nonzero(argv, capsys):
     """Commands of later slices exit 2 naming their ROADMAP item; serve
-    is ported and exits 2 here because the host has no CUDA."""
+    and worker are ported and exit 2 here because the host has no CUDA
+    (brokerd: tests/test_torch_fleet.py)."""
     from vtd_tpu_torch.__main__ import main
 
     assert main(argv) == 2
-    want = ("CUDA is not available" if argv[0] == "serve"
+    want = ("CUDA is not available" if argv[0] in ("serve", "worker")
             else "ROADMAP queue 1 item")
     assert want in capsys.readouterr().err

@@ -20,6 +20,9 @@ and the command line (``python -m vtd_tpu_torch process | train-*``).
 Since the fifth: the REST service (``serve/``, ``obs/``,
 ``core/config.py``, ``python -m vtd_tpu_torch serve``) with its
 in-process thread worker, and keyframe sampling through the cv2 gate.
+Since the sixth: the serving fleet (the file and TCP brokers,
+``python -m vtd_tpu_torch brokerd | worker``, the process pool, the API
+client) and the ``torch.profiler`` trace behind ``profile_dir``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

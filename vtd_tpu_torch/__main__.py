@@ -2,26 +2,24 @@
 
   python -m vtd_tpu_torch process <video> [--crnn] [--threshold 0.5] [--out r.json]
   python -m vtd_tpu_torch serve [--host H] [--port P] [--device cuda|cpu]
+  python -m vtd_tpu_torch worker [--broker tcp://host:6380] [--concurrency N]
+                                 [--device cuda|cpu]
+  python -m vtd_tpu_torch brokerd [--host H] [--port 6380] [--token T]
   python -m vtd_tpu_torch train-detector ...    (see train/train_detector.py)
   python -m vtd_tpu_torch train-recognizer ...  (see train/train_recognizer.py)
   python -m vtd_tpu_torch train-trocr ...       (see train/trocr_trainer.py)
 
 Every command runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given. ``worker`` and ``brokerd`` are not ported yet
-(ROADMAP queue 1 item 9).
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import json
+import os
 import sys
 
-BROKER_NOT_PORTED = (
-    "{} is not ported yet: it waits for the next slice of the port "
-    "(ROADMAP queue 1 item 9: the broker, brokerd and the process pool); "
-    "`python -m vtd_tpu_torch serve` runs the in-process thread worker"
-)
 MULTI_GPU_NOT_PORTED = (
     "--data-parallel and --two-stage wait for ROADMAP queue 1 item 7 "
     "(multiple GPUs)"
@@ -98,6 +96,85 @@ def _cmd_process(argv):
     else:
         print(payload)
     return 0 if result.get("status") == "success" else 1
+
+
+def check_distributed() -> None:
+    """The counterpart of the reference's ``init_distributed``
+    (``vtd_tpu/core/mesh.py:25-63``): a no-op for one process; the
+    multi-process variables raise NotImplementedError, never ignored."""
+    named = [v for v in ("VTD_COORDINATOR_ADDRESS", "VTD_NUM_PROCESSES")
+             if os.environ.get(v)]
+    if named:
+        raise NotImplementedError(
+            f"{' and '.join(named)} set: multi-process runs wait for "
+            "ROADMAP queue 1 item 7 (multiple GPUs)"
+        )
+
+
+def _cmd_worker(argv):
+    """Dedicated worker process: drain a shared broker queue (the
+    reference's ``celery -A app.celery_app worker`` counterpart), running
+    its jobs on the card unless ``--device cpu``."""
+    from .core.config import settings
+
+    parser = argparse.ArgumentParser(prog="vtd_tpu_torch worker")
+    parser.add_argument("--broker", default="",
+                        help="broker URL, e.g. file:///shared/queue or "
+                             "tcp://brokerhost:6380 "
+                             "(default: settings.celery_broker_url)")
+    parser.add_argument("--concurrency", type=int, default=2)
+    parser.add_argument("--device", default=settings.device,
+                        choices=["cuda", "cpu"],
+                        help="where job pipelines run (default cuda)")
+    args = parser.parse_args(argv)
+
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("worker: CUDA is not available; the worker runs its jobs "
+                  "on the card unless --device cpu is given",
+                  file=sys.stderr)
+            return 2
+    from .serve.tasks import check_settings
+
+    try:
+        check_distributed()
+        check_settings()
+    except NotImplementedError as e:
+        print(f"worker: {e}", file=sys.stderr)
+        return 2
+    if args.broker:
+        settings.celery_broker_url = args.broker
+    settings.device = args.device
+    os.environ["DEVICE"] = args.device  # what spawned children read
+
+    # rebind the module-level queue to the requested broker
+    from .serve import queue as queue_mod
+
+    broker = queue_mod._broker_from_settings()
+    if broker is None:
+        print("worker requires a non-local broker (e.g. file:///shared/q "
+              "or tcp://brokerhost:6380)", file=sys.stderr)
+        return 2
+    queue_mod.task_queue.broker = broker
+    queue_mod.task_queue.concurrency = args.concurrency
+
+    from .serve import tasks  # registers process_video_task etc.
+
+    tasks.register_beat_schedule()
+    queue_mod.task_queue.start_workers()
+    print(f"worker draining {settings.celery_broker_url} "
+          f"(concurrency={args.concurrency}, device={args.device}); "
+          "Ctrl-C to stop", flush=True)
+    import time as _time
+
+    try:
+        while True:
+            _time.sleep(1.0)
+    except KeyboardInterrupt:
+        queue_mod.task_queue.shutdown()
+        return 0
 
 
 def _cmd_train_trocr(argv):
@@ -207,9 +284,13 @@ def main(argv=None):
         from .serve.app import main as serve_main
 
         return serve_main(rest)
-    if cmd in ("worker", "brokerd"):
-        print(BROKER_NOT_PORTED.format(cmd), file=sys.stderr)
-        return 2
+    if cmd == "worker":
+        return _cmd_worker(rest)
+    if cmd == "brokerd":
+        from .serve.brokerd import main as brokerd_main
+
+        brokerd_main(rest)
+        return 0
     if cmd.startswith("train"):
         # per-epoch progress lines of the trainers' loggers
         import logging

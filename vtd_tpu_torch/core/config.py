@@ -7,10 +7,12 @@ environment variable coerced to the default's type, then the default.
 The port never needs pydantic for it.
 
 One setting is new: ``device`` (``DEVICE``), where the serving pipelines
-run, ``"cuda"`` by default. Two are held for later slices and raise when
-a pipeline is built with them (``serve/tasks.py:get_pipeline``):
-``data_parallel_chips > 0`` (multiple GPUs) and a non-empty
-``profile_trace_dir`` (profiling).
+run, ``"cuda"`` by default. ``serve`` and ``worker`` write their
+``--device`` back into ``DEVICE``, since the process pool's children
+read their settings from the environment. One is held for a later slice
+and raises when a pipeline is built with it
+(``serve/tasks.py:get_pipeline``): ``data_parallel_chips > 0`` (multiple
+GPUs).
 """
 from __future__ import annotations
 

@@ -1,2 +1,5 @@
-"""Web UI served by the API at ``/app`` (port of ``vtd_tpu/frontend``).
-The reference's ``client.py`` waits for the next slice of the port."""
+"""Web UI served by the API at ``/app``, and the API's client (port of
+``vtd_tpu/frontend``)."""
+from .client import APIClient
+
+__all__ = ["APIClient"]

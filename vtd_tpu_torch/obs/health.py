@@ -4,8 +4,9 @@ worker, model files, external storage; a caching ``HealthMonitor`` with
 k8s-style readiness (critical = db/queue/disk/memory) and liveness
 (memory/disk) derivations (health.py:288-329).
 
-The reference's redis/celery probes become a probe of the in-process
-worker pool.
+The reference's redis/celery probes become a probe of the configured
+broker: the queue directory of ``file://``, a ``ping`` of ``brokerd``
+for ``tcp://``, the in-process worker pool's stats for ``local://``.
 
 The accelerator check is the port's CUDA probe: CUDA present, a tiny op
 on each card's default device, ``torch.cuda.synchronize()``, all in a
@@ -72,11 +73,44 @@ class HealthCheck:
             return _bad(str(e))
 
     async def check_queue(self) -> Dict[str, Any]:
-        """The in-process worker pool's stats (the only queue this slice
-        serves: ``serve/queue.py`` refuses every other broker URL)."""
-        from ..serve.queue import task_queue
+        """Broker probe. ``file://`` -> the queue directory's four
+        subdirectories exist, and its pending count; ``tcp://`` -> brokerd
+        answers ``ping`` within 2 s, and its pending count; ``local://``
+        -> the in-process worker pool's stats. (The reference sends every
+        URL but ``local://`` to a redis probe.)"""
+        url = settings.celery_broker_url
+        if url.startswith("file://"):
+            root = url[len("file://"):]
+            subs = ("pending", "claimed", "state", "revoked")
+            missing = [d for d in subs
+                       if not os.path.isdir(os.path.join(root, d))]
+            if missing:
+                return _bad(f"queue directory {root} lacks {missing}",
+                            backend="file")
+            pending = sum(1 for n in os.listdir(os.path.join(root, "pending"))
+                          if n.endswith(".json"))
+            return _ok(backend="file", pending_tasks=pending)
+        if url.startswith("tcp://"):
+            from ..serve.brokerd import TcpBroker, parse_tcp_url
 
-        return _ok(backend="local", **task_queue.stats())
+            try:
+                broker = TcpBroker(*parse_tcp_url(url), timeout=2.0)
+                try:
+                    pong = broker.ping()
+                    pending = broker.pending_count()
+                finally:
+                    broker.close()
+            except (OSError, RuntimeError, ValueError) as e:
+                return _bad(str(e), backend="tcp")
+            if not pong:
+                return _bad("brokerd did not answer ping", backend="tcp")
+            return _ok(backend="tcp", pending_tasks=pending)
+        if url in ("", "local://") or url.startswith("local://"):
+            from ..serve.queue import task_queue
+
+            return _ok(backend="local", **task_queue.stats())
+        return _bad(f"unsupported CELERY_BROKER_URL {url!r}",
+                    backend=url.split(":", 1)[0])
 
     # alias names matching the reference check set
     check_redis = check_queue

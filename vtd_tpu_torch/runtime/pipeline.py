@@ -23,12 +23,21 @@ candidate its keyframe's detections. Every batch feeds the
 and every transformer chunk ``recognizer_chunk_occupancy``
 (``obs/metrics.py``).
 
+``profile_dir`` wraps what the reference wraps in ``jax.profiler.trace``
+(the dispatcher thread and the collect loop of ``process_video``) in a
+``torch.profiler`` trace of every thread's CPU ops and, on the card, its
+kernels, written as a Chrome trace to
+``<profile_dir>/process_video-<pid>-<unix ms>.json``.
+
 Not in this slice: multi-device meshes and the two-stage runner (each
 raises NotImplementedError).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -51,6 +60,41 @@ logger = logging.getLogger(__name__)
 # stay under 1024, where float16 rounds to 0.25 px; above it the det
 # block of the pack is float32.
 _F16_SAFE_INPUT = 724
+
+# torch.profiler runs one trace at a time in a process.
+_trace_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _profile_span(profile_dir: Optional[str], device: torch.device):
+    """A ``torch.profiler`` trace of the span, exported as a Chrome trace
+    to ``<profile_dir>/process_video-<pid>-<unix ms>.json``; nothing
+    without ``profile_dir``. The trace holds every thread's CPU ops and,
+    on the card, the kernels. A call that finds another call's trace
+    running writes none: its work is in that trace already."""
+    if not profile_dir or not _trace_lock.acquire(blocking=False):
+        yield
+        return
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(
+            profile_dir,
+            f"process_video-{os.getpid()}-{int(time.time() * 1e3)}.json",
+        )
+        # the kernels are launched from the dispatcher thread
+        with profile(activities=activities,
+                     experimental_config=_ExperimentalConfig(
+                         profile_all_threads=True)) as prof:
+            yield
+        prof.export_chrome_trace(path)
+    finally:
+        _trace_lock.release()
 
 
 def _dedup_summary(all_results: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -91,6 +135,7 @@ class VideoTextPipeline:
         transfer_format: str = "bgr",
         recognizer_kwargs: Optional[Dict[str, Any]] = None,
         temporal_dedup: bool = False,
+        profile_dir: Optional[str] = None,
         sample_mode: str = "stride",
         decode_workers: int = 1,
         pipeline_depth: int = 3,
@@ -132,6 +177,8 @@ class VideoTextPipeline:
         self.decode_backend = decode_backend
         # Cross-frame text-track merging in the summary
         self.temporal_dedup = temporal_dedup
+        # Opt-in torch.profiler trace around the hot loop
+        self.profile_dir = profile_dir
         # 'keyframe' ships only scene-change keyframes to the device and
         # propagates each keyframe's detections to the near-duplicate
         # candidates it covers (video/processor.extract_frame_batches).
@@ -673,25 +720,28 @@ class VideoTextPipeline:
                 except BaseException as e:  # raised on the collect side
                     dispatch_q.put(e)
 
-            disp_t = _threading.Thread(target=dispatcher, daemon=True)
-            disp_t.start()
-            loop = _asyncio.get_running_loop()
-            try:
-                while True:
-                    item = await loop.run_in_executor(None, dispatch_q.get)
-                    if item is None:
-                        break
-                    if isinstance(item, BaseException):
-                        raise item
-                    await collect(*item)
-            finally:
-                stop_evt.set()
-                while not dispatch_q.empty():
-                    try:
-                        dispatch_q.get_nowait()
-                    except _queue.Empty:
-                        break
-                disp_t.join(timeout=10.0)
+            with _profile_span(self.profile_dir, self.device):
+                disp_t = _threading.Thread(target=dispatcher, daemon=True)
+                disp_t.start()
+                loop = _asyncio.get_running_loop()
+                try:
+                    while True:
+                        item = await loop.run_in_executor(
+                            None, dispatch_q.get
+                        )
+                        if item is None:
+                            break
+                        if isinstance(item, BaseException):
+                            raise item
+                        await collect(*item)
+                finally:
+                    stop_evt.set()
+                    while not dispatch_q.empty():
+                        try:
+                            dispatch_q.get_nowait()
+                        except _queue.Empty:
+                            break
+                    disp_t.join(timeout=10.0)
             # dups follow their keyframe's batch, and parallel segment
             # decode interleaves batches: restore frame order
             all_results.sort(key=lambda r: r["frame_number"])

@@ -675,6 +675,7 @@ def main(argv=None) -> int:
         print(f"serve: {e}", file=sys.stderr)
         return 2
     settings.device = args.device
+    os.environ["DEVICE"] = args.device  # what pool children read
 
     from ..obs.logging import configure_logging
 

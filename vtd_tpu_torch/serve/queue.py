@@ -1,25 +1,27 @@
 """Task queue — Celery-compatible semantics without Celery (port of
-``vtd_tpu/serve/queue.py``, thread worker only).
+``vtd_tpu/serve/queue.py``).
 
 The reference distributes work via Celery over Redis (reference
-``app/celery_app.py``); here the queue is an in-process thread-pool
-worker, one process driving the card, with Celery-shaped semantics:
+``app/celery_app.py``); here the queue is an in-process worker pool with
+Celery-shaped semantics:
 
   * ``@task_queue.task(name=..., queue=...)`` decorator producing
     ``.delay(*args)`` -> ``AsyncResult`` with ``.id``, ``.state``,
     ``.info``
   * states PENDING / STARTED / PROGRESS / SUCCESS / FAILURE / REVOKED
     (``task_track_started`` parity, celery_app.py:20)
-  * ``revoke(task_id, terminate=...)`` (best-effort: running tasks see a
-    cancellation flag; queued tasks are dropped)
+  * ``revoke(task_id, terminate=...)`` (best-effort on threads: running
+    tasks see a cancellation flag; queued tasks are dropped; the process
+    pool SIGKILLs a running task's child)
   * soft/hard time limits (celery_app.py:23-24) enforced by a monitor
   * periodic beat schedule (celery_app.py:35-44)
   * prerun/postrun/failure signal hooks (celery_app.py:54-105)
   * worker stats for ``get_celery_stats()`` parity (celery_app.py:109-129)
 
-The reference's cross-host brokers (``file://``, ``tcp://``) and its
-process pool (``worker_pool="process"``) wait for the next slice of the
-port (ROADMAP queue 1 item 9) and raise NotImplementedError here.
+Multi-host fleets share one broker (``settings.celery_broker_url``):
+``file:///shared/dir`` (serve/broker.py) or ``tcp://host:port``
+(serve/brokerd.py); ``worker_pool="process"`` runs tasks in spawned
+children that the hard time limit can kill (serve/procworker.py).
 """
 from __future__ import annotations
 
@@ -33,11 +35,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
-
-NEXT_SLICE = (
-    "waits for the next slice of the port (ROADMAP queue 1 item 9: the "
-    "broker, brokerd and the process pool)"
-)
 
 STATES = ("PENDING", "STARTED", "PROGRESS", "SUCCESS", "FAILURE", "REVOKED")
 
@@ -129,9 +126,19 @@ class TaskContext:
     def update_state(self, state: str = "PROGRESS", meta: Any = None):
         self.request.state = state
         self.request.info = meta
+        broker = self._backend.broker
+        if broker is not None:
+            broker.set_state(self.id, {"state": state, "info": meta})
+            broker.heartbeat(self.id)
 
     def is_revoked(self) -> bool:
-        return self.request.cancel_event.is_set()
+        if self.request.cancel_event.is_set():
+            return True
+        broker = self._backend.broker
+        if broker is not None and broker.is_revoked(self.id):
+            self.request.cancel_event.set()
+            return True
+        return False
 
 
 class RegisteredTask:
@@ -166,12 +173,26 @@ class TaskQueue:
         concurrency: int = 2,
         soft_time_limit: float = 3000.0,
         hard_time_limit: float = 3600.0,
+        broker=None,
         worker_kind: str = "thread",
+        tasks_module: str = "vtd_tpu_torch.serve.tasks",
+        max_tasks_per_child: int = 10,
     ):
-        if worker_kind != "thread":
-            raise NotImplementedError(
-                f"worker_kind={worker_kind!r} {NEXT_SLICE}"
-            )
+        # broker: optional external work queue (serve/broker.FileBroker
+        # protocol) for multi-host fleets — N worker processes/hosts
+        # drain one shared queue, Celery-over-Redis style (reference
+        # app/celery_app.py:14-34). None = in-process queue.
+        self.broker = broker
+        # worker_kind="process": Celery-prefork semantics — child
+        # processes that the hard time limit (and revoke(terminate=True))
+        # can actually SIGKILL, with max_tasks_per_child recycling
+        # (serve/procworker.py), each with its own CUDA context. "thread"
+        # (default) marks-but-can't-stop past the hard limit; its worker
+        # threads share one pipeline and one CUDA context.
+        self.worker_kind = worker_kind
+        self.tasks_module = tasks_module
+        self.max_tasks_per_child = max_tasks_per_child
+        self._pool = None  # ProcessWorkerPool, created lazily
         self.tasks: Dict[str, RegisteredTask] = {}
         self.records: Dict[str, TaskRecord] = {}
         self._q: _queue.Queue = _queue.Queue()
@@ -214,34 +235,89 @@ class TaskQueue:
         )
         with self._lock:
             self.records[rec.id] = rec
-        self._q.put(rec)
-        self._ensure_workers()
+        if self.broker is not None:
+            self.broker.enqueue(rec.id, rec.name, args, kwargs, rec.queue)
+            self._ensure_workers()
+        elif self.worker_kind == "process":
+            self._ensure_workers()
+            self._pool.submit(rec)
+        else:
+            self._q.put(rec)
+            self._ensure_workers()
         return AsyncResult(rec.id, self)
 
     def get_record(self, task_id: str) -> Optional[TaskRecord]:
-        return self.records.get(task_id)
+        rec = self.records.get(task_id)
+        if self.broker is None:
+            return rec
+        # Brokered: the task may be running on another host — merge the
+        # shared state over the local record (or synthesize one).
+        state = self.broker.get_state(task_id)
+        if state is None:
+            return rec
+        if rec is None:
+            rec = TaskRecord(id=task_id, name="", args=(), kwargs={})
+            self.records[task_id] = rec
+        if rec.state not in ("SUCCESS", "FAILURE", "REVOKED"):
+            rec.state = state.get("state", rec.state)
+            rec.info = state.get("info", rec.info)
+            if "result" in state:
+                rec.result = state["result"]
+            if "traceback" in state:
+                rec.traceback = state["traceback"]
+        return rec
 
     def revoke(self, task_id: str, terminate: bool = False) -> bool:
-        """Queued tasks are dropped; a running task sees its cancellation
-        flag at its next progress point (a thread cannot be killed, so
-        ``terminate`` changes nothing here)."""
+        if self.broker is not None:
+            self.broker.revoke(task_id)
         rec = self.records.get(task_id)
         if not rec:
-            return False
+            return self.broker is not None
         rec.revoke_requested = True
         rec.cancel_event.set()
+        if self._pool is not None:
+            self._pool.revoke(task_id, terminate=terminate)
         if rec.state == "PENDING":
             rec.state = "REVOKED"
             rec.finished_at = time.time()
             self._stats["revoked"] += 1
+            if self.broker is not None:
+                self.broker.set_state(task_id, {"state": "REVOKED"})
         return True
 
     # -- workers -----------------------------------------------------------
     def start_workers(self):
-        """Start worker/beat/monitor threads without a submission."""
+        """Start worker/beat/monitor threads without a submission — how a
+        dedicated worker process (multi-host fleet) attaches to a shared
+        broker and starts draining it."""
         self._ensure_workers()
 
     def _ensure_workers(self):
+        if self.worker_kind == "process" and self.broker is None:
+            with self._lock:
+                if self._pool is None:
+                    from .procworker import ProcessWorkerPool
+
+                    self._pool = ProcessWorkerPool(
+                        self,
+                        tasks_module=self.tasks_module,
+                        concurrency=self.concurrency,
+                        max_tasks_per_child=self.max_tasks_per_child,
+                    )
+                if self._beat and self._beat_thread is None:
+                    self._beat_thread = threading.Thread(
+                        target=self._beat_loop, daemon=True
+                    )
+                    self._beat_thread.start()
+                if self._monitor_thread is None:
+                    # ProcessWorkerPool enforces time limits itself; the
+                    # queue still needs the record GC (and nothing else)
+                    # or records grow without bound on long-lived hosts.
+                    self._monitor_thread = threading.Thread(
+                        target=self._gc_loop, daemon=True
+                    )
+                    self._monitor_thread.start()
+            return
         with self._lock:
             alive = [w for w in self._workers if w.is_alive()]
             self._workers = alive
@@ -262,6 +338,29 @@ class TaskQueue:
 
     def _worker_loop(self):
         while not self._stop.is_set():
+            if self.broker is not None:
+                # One NFS hiccup or malformed task file must not kill a
+                # fleet worker thread permanently.
+                try:
+                    payload = self.broker.claim()
+                    if payload is None:
+                        self._stop.wait(0.1)
+                        continue
+                    rec = self.records.get(payload["id"])
+                    if rec is None or rec.name == "":
+                        rec = TaskRecord(
+                            id=payload["id"], name=payload["name"],
+                            args=tuple(payload.get("args", ())),
+                            kwargs=payload.get("kwargs", {}),
+                            queue=payload.get("queue", "default"),
+                        )
+                        self.records[rec.id] = rec
+                    self._run(rec)
+                    self.broker.finish(rec.id)
+                except Exception:
+                    logger.exception("broker worker iteration failed")
+                    self._stop.wait(1.0)
+                continue
             try:
                 rec = self._q.get(timeout=0.2)
             except _queue.Empty:
@@ -285,6 +384,11 @@ class TaskQueue:
             done.sort(key=lambda r: r.finished_at or 0)
             for r in done[: len(done) - keep]:
                 self.records.pop(r.id, None)
+
+    def _gc_loop(self):
+        while not self._stop.is_set():
+            self._gc_records()
+            self._stop.wait(5.0)
 
     def _monitor_loop(self):
         """Enforce soft/hard time limits (celery_app.py:23-24 parity):
@@ -314,6 +418,17 @@ class TaskQueue:
                         _safe(hook, rec, err)
                     for hook in self.on_postrun:
                         _safe(hook, rec)
+            if self.broker is not None:
+                # keep shared-queue heartbeats fresh for tasks running
+                # here (started_at is set by _run only, never by a merge
+                # of another host's state in get_record, so a producer
+                # polling a job does not keep a dead worker's claim
+                # alive), and reclaim tasks from dead workers
+                for rec in list(self.records.values()):
+                    if (rec.state in ("STARTED", "PROGRESS")
+                            and rec.started_at is not None):
+                        _safe(self.broker.heartbeat, rec.id)
+                _safe(self.broker.requeue_stale)
             self._gc_records()
             self._stop.wait(0.25)
 
@@ -325,6 +440,13 @@ class TaskQueue:
             return
         rec.state = "STARTED"
         rec.started_at = time.time()
+        if self.broker is not None:
+            # Advisory only — a transient broker error here (daemon
+            # restart mid-claim) must not abort a claimed task: the
+            # local record is already STARTED, so an exception would
+            # leave the monitor heartbeating a task that never runs
+            # until the hard time limit fires.
+            _safe(self.broker.set_state, rec.id, {"state": "STARTED"})
         ctx = TaskContext(rec, self)
         for hook in self.on_prerun:
             _safe(hook, rec)
@@ -335,7 +457,8 @@ class TaskQueue:
                 self._stats["revoked"] += 1
             else:
                 # A soft-time-limit nudge the task outran (or ignored)
-                # is still a success — Celery parity.
+                # is still a success — Celery parity: tasks that swallow
+                # SoftTimeLimitExceeded and return keep their result.
                 rec.state = "SUCCESS"
                 self._stats["completed"] += 1
         except Exception as e:
@@ -350,6 +473,16 @@ class TaskQueue:
             logger.error("task %s failed: %s", rec.name, e)
         finally:
             rec.finished_at = time.time()
+            if self.broker is not None:
+                final = {"state": rec.state, "traceback": rec.traceback}
+                try:  # results ride the shared state file when JSON-able
+                    import json as _json
+
+                    _json.dumps(rec.result)
+                    final["result"] = rec.result
+                except (TypeError, ValueError):
+                    final["result"] = repr(rec.result)
+                self.broker.set_state(rec.id, final)
             for hook in self.on_postrun:
                 _safe(hook, rec)
 
@@ -372,7 +505,11 @@ class TaskQueue:
                 r.name for r in self.records.values() if r.state == "STARTED"
             ]
             pending = self._q.qsize()
-        workers = len([w for w in self._workers if w.is_alive()])
+        workers = (
+            self._pool.alive_workers()
+            if self._pool is not None
+            else len([w for w in self._workers if w.is_alive()])
+        )
         return {
             "workers": workers,
             "active_tasks": active,
@@ -382,6 +519,8 @@ class TaskQueue:
 
     def shutdown(self):
         self._stop.set()
+        if self._pool is not None:
+            self._pool.shutdown()
 
 
 def _safe(fn, *args):
@@ -392,23 +531,34 @@ def _safe(fn, *args):
 
 
 def _broker_from_settings():
-    """Settings-driven broker (reference celery_app.py:14-16): this slice
-    serves only ``local://``, the in-process queue (None). The
-    reference's ``file://`` and ``tcp://`` brokers raise
-    NotImplementedError; any other scheme raises ValueError as in the
-    reference, because an unknown URL silently degrading to the
-    in-process queue would turn an intended fleet into one node."""
+    """Settings-driven broker (reference celery_app.py:14-16 reads its
+    broker URL from settings the same way): ``file:///shared/dir`` mounts
+    a FileBroker on a shared filesystem, ``tcp://host:port`` connects to
+    ``brokerd``; ``local://`` = in-process (None).
+
+    Any other scheme raises: an unknown URL silently degrading to the
+    in-process queue would turn an intended multi-host fleet into a
+    single-node deployment with no error (a ``redis://`` URL from a
+    reference-style deployment must fail fast here)."""
     from ..core.config import settings
 
     url = settings.celery_broker_url
+    if url.startswith("file://"):
+        from .broker import FileBroker
+
+        return FileBroker(url[len("file://"):])
+    if url.startswith("tcp://"):
+        from .brokerd import TcpBroker, parse_tcp_url
+
+        return TcpBroker(*parse_tcp_url(url))
     if url in ("", "local://") or url.startswith("local://"):
-        return None
-    if url.startswith(("file://", "tcp://")):
-        raise NotImplementedError(f"CELERY_BROKER_URL={url!r} {NEXT_SLICE}")
+        return None  # in-process queue (single-node default)
     raise ValueError(
         f"unsupported CELERY_BROKER_URL scheme: {url!r} — use "
-        "'local://' (in-process, single node); redis:// is not a "
-        "supported transport"
+        "'local://' (in-process, single node), 'file:///shared/dir' "
+        "(FileBroker on a shared filesystem), or 'tcp://host:port' "
+        "(the brokerd network broker) for multi-host fleets; redis:// is "
+        "not a supported transport"
     )
 
 
@@ -419,5 +569,7 @@ def _worker_kind_from_settings() -> str:
 
 
 # Module-level default queue (the reference's module-level celery_app).
-_broker_from_settings()
-task_queue = TaskQueue(worker_kind=_worker_kind_from_settings())
+task_queue = TaskQueue(
+    broker=_broker_from_settings(),
+    worker_kind=_worker_kind_from_settings(),
+)

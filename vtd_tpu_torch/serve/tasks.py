@@ -101,19 +101,14 @@ def configure_pipeline(**kwargs) -> None:
 
 
 def check_settings() -> None:
-    """Raise NotImplementedError for the settings whose paths later
-    slices of the port bring: serving must not quietly run on one card
-    or without the trace it was asked for."""
+    """Raise NotImplementedError for ``data_parallel_chips > 0``: its
+    path comes with the port's multi-GPU slice, and serving must not
+    quietly run on one card."""
     # env vars arrive as strings; "0" must not enable the mesh
     if int(settings.data_parallel_chips or 0) > 0:
         raise NotImplementedError(
             "data_parallel_chips > 0 waits for the port's multi-GPU slice "
             "(ROADMAP queue 1 item 7)"
-        )
-    if settings.profile_trace_dir:
-        raise NotImplementedError(
-            "profile_trace_dir waits for the port's profiling slice "
-            "(ROADMAP queue 1 item 10)"
         )
 
 
@@ -169,6 +164,8 @@ def _build_pipeline(use_transformer, active, trocr_ckpt):
     kwargs.pop("transformer_path", None)
     kwargs["use_transformer_ocr"] = use_transformer
     kwargs.setdefault("device", settings.device)
+    if settings.profile_trace_dir:
+        kwargs.setdefault("profile_dir", settings.profile_trace_dir)
     # Checkpoint resolution order: active registry row, explicit
     # configure_pipeline kwarg, then the standard location under
     # settings.model_path (the reference loads
