@@ -96,7 +96,22 @@ any error:
              and read back by ``TransformerRecognizer``; one DBNet and one
              CRNN step from the trained checkpoints on the card against
              the CPU (loss and gradient norm within the stated
-             tolerances).
+             tolerances);
+  parallel   several devices, the trained checkpoints at config 3's
+             settings on the shipped frame: the fused pipeline, a mesh of
+             ``[cuda:0]`` and one of two replicas on ``[cuda:0, cuda:0]``
+             (two threads, two streams) over the same pipelined batches,
+             each equal to the fused path, with their frames/s and their
+             ``segmented_cc_round`` calls counted; the two-stage runner
+             (both stages on the card) through ``run_batches`` against the
+             fused path, and one TrOCR batch through it; ``train-detector
+             --mesh 1x1`` (one spawned NCCL rank) and its checkpoint; the
+             data-parallel DBNet step (640x640, global batch 8, float32)
+             with one NCCL rank and with two gloo ranks on the card, each
+             against the one-process step (loss and gradient norm within
+             the stated tolerances), ms/step and the gradient all-reduce's
+             ms; with two or more cards also a mesh, the two-stage
+             pipeline and NCCL ranks over distinct cards. No rank is left.
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -1775,25 +1790,34 @@ def check_served_texts(result: dict, label: str, n_frames: int) -> int:
     return sum(len(f["detections"]) for f in frames)
 
 
-def same_job_results(a: dict, b: dict, label: str) -> None:
-    """A job run beside another against the same job run alone."""
-    fa, fb = a["results"], b["results"]
-    if [f["frame_number"] for f in fa] != [f["frame_number"] for f in fb]:
-        raise AssertionError(f"{label}: other frames")
-    for x, y in zip(fa, fb):
-        if x.get("duplicate_of") != y.get("duplicate_of"):
-            raise AssertionError(f"{label}: other keyframes")
-        dx = sorted(x["detections"], key=lambda d: d["text"])
-        dy = sorted(y["detections"], key=lambda d: d["text"])
+def same_frames(got, want, label: str) -> None:
+    """Two runs' per-frame detections: texts equal, boxes within
+    SERVE_BOX_TOL_PX, detection confidences within SERVE_CONF_TOL."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} frames, {len(want)}")
+    for f, (x, y) in enumerate(zip(got, want)):
+        dx = sorted(x, key=lambda d: d["text"])
+        dy = sorted(y, key=lambda d: d["text"])
         if [d["text"] for d in dx] != [d["text"] for d in dy]:
-            raise AssertionError(f"{label} frame {x['frame_number']}: texts")
+            raise AssertionError(f"{label} frame {f}: texts")
         for p, q in zip(dx, dy):
             box = max(abs(u - v) for u, v in zip(p["bbox"], q["bbox"]))
             conf = abs(p["detection_confidence"] - q["detection_confidence"])
             if box > SERVE_BOX_TOL_PX or conf > SERVE_CONF_TOL:
                 raise AssertionError(
-                    f"{label} frame {x['frame_number']}: box {box} px, "
-                    f"confidence {conf}")
+                    f"{label} frame {f}: box {box} px, confidence {conf}")
+
+
+def same_job_results(a: dict, b: dict, label: str) -> None:
+    """A job run beside another against the same job run alone."""
+    fa, fb = a["results"], b["results"]
+    if [f["frame_number"] for f in fa] != [f["frame_number"] for f in fb]:
+        raise AssertionError(f"{label}: other frames")
+    if [f.get("duplicate_of") for f in fa] != [
+            f.get("duplicate_of") for f in fb]:
+        raise AssertionError(f"{label}: other keyframes")
+    same_frames([f["detections"] for f in fa], [f["detections"] for f in fb],
+                label)
 
 
 def metric_value(text: str, sample: str) -> float:
@@ -2438,8 +2462,292 @@ def run_fleet(torch, np, card, results, state, tmp):
           f"results equal ({card})")
 
 
+DP_STEPS = 6  # timed data-parallel DBNet steps after the compared one
+DP_BATCH = 8  # global batch of the data-parallel DBNet steps
+# one data-parallel DBNet step in true float32 (TF32 off) on the card
+# against the one-process step from the same weights and batch: the
+# tolerances the card's train step has held against the CPU's
+DP_LOSS_RTOL = 7.3e-05
+DP_NORM_RTOL = 1.3e-03
+
+
+def dp_inputs(torch, rows=slice(None)):
+    """``rows`` of the global batch of ``DP_BATCH`` synthetic 640x640
+    frames and their maps, on the card."""
+    from vtd_tpu_torch.train.train_detector import synthesize_detection_data
+
+    imgs, tgts = synthesize_detection_data(DP_BATCH, 640, seed=0)
+    return (torch.from_numpy(imgs[rows]).cuda(),
+            {k: torch.from_numpy(v[rows]).cuda() for k, v in tgts.items()})
+
+
+def dp_first_step(torch, x, t, group, tf32: bool):
+    """A fresh train state from the trained detector's weights and one
+    step (TF32 convolutions on or off) -> (step, its loss and gradient
+    norm)."""
+    from vtd_tpu_torch.convert import dbnet_from_jax
+    from vtd_tpu_torch.models.dbnet import DBNet
+    from vtd_tpu_torch.train.checkpoint import load_weights
+    from vtd_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    st = create_train_state(
+        DBNet(dtype=torch.float32),
+        weights=load_weights(CHECKPOINTS["detector"], dbnet_from_jax),
+        device="cuda")
+    step = make_train_step(st["model"], st["optimizer"], group)
+    loss = float(step(x, t)["loss"])
+    return step, st["model"], {"loss": loss,
+                               "grad_norm": grad_norm(torch, st["model"])}
+
+
+def dp_step_rank(rank: int, n_steps: int) -> dict:
+    """One rank of the data-parallel DBNet run (spawned by
+    ``spawn_ranks``), on its slice of the global batch: the first step in
+    true float32 and with TF32 convolutions (loss, gradient norm), then
+    ``n_steps`` timed TF32 steps and as many timed gradient all-reduces."""
+    import torch
+    import torch.distributed as dist
+
+    from vtd_tpu_torch.core.mesh import local_batch_slice, make_mesh
+    from vtd_tpu_torch.parallel.collectives import average_gradients
+
+    world = dist.get_world_size()
+    group = dist.group.WORLD
+    start, size = local_batch_slice(
+        DP_BATCH, make_mesh(n_data=world, devices=["cuda"] * world))
+    x, t = dp_inputs(torch, slice(start, start + size))
+    out = {"backend": dist.get_backend(), "rows": [start, size]}
+    out["fp32"] = dp_first_step(torch, x, t, group, tf32=False)[2]
+    step, model, out["tf32"] = dp_first_step(torch, x, t, group, tf32=True)
+    out["ms"], _ = timed_steps(torch, lambda: step(x, t)["loss"], n_steps)
+    reduce_ms = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average_gradients(model.parameters(), group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = reduce_ms
+    out["grad_bytes"] = 4 * sum(p.numel() for p in model.parameters())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def parallel_phase(torch, np, card, results, state):
+    """Several devices: data-parallel inference over a mesh of replicas,
+    the two-stage runner, and data-parallel DBNet training, on the
+    trained checkpoints at config 3's shape; with one card, replicas and
+    ranks share it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtd_parallel_") as tmp:
+        run_parallel(torch, np, card, results, state, tmp)
+
+
+def run_parallel(torch, np, card, results, state, tmp):
+    import multiprocessing
+
+    from vtd_tpu_torch.core.mesh import make_mesh, spawn_ranks
+    from vtd_tpu_torch.ops.cc_kernels import segmented_cc_round
+    from vtd_tpu_torch.parallel.pipeline import TwoStagePipeline
+    from vtd_tpu_torch.runtime import TextDetector, VideoTextPipeline
+    from vtd_tpu_torch.train.train_detector import main as train_detector_main
+
+    n_cards = torch.cuda.device_count()
+    ref = verify_frames(np)
+    frames = np.stack([ref["frame_i420"]] * B)
+    valid = np.ones(B, bool)
+    plan = [(frames, valid, None)] * N_BATCHES
+    fused = trained_pipeline(state, "crnn")
+
+    def mesh_pipeline(devices):
+        return VideoTextPipeline(
+            detector_path=CHECKPOINTS["detector"],
+            recognizer_path=CHECKPOINTS["crnn"], use_transformer_ocr=False,
+            batch_size=B, max_dets=64, host_downscale=640,
+            transfer_format="yuv420",
+            mesh=make_mesh(n_data=len(devices), devices=devices))
+
+    # -- data-parallel inference ----------------------------------------
+    meshes = {"mesh1": ["cuda:0"], "parallel": ["cuda:0", "cuda:0"]}
+    if n_cards >= 2:
+        meshes["cards"] = [f"cuda:{i}" for i in range(n_cards)]
+    else:
+        print("mesh over distinct cards: not run (one card visible)")
+    want = None
+    rates = {}
+    for path, devices in [("fused", None)] + list(meshes.items()):
+        pipe = fused if devices is None else mesh_pipeline(devices)
+        try:
+            pipe.process_batch(frames, valid)  # warm-up
+            reset_counts()
+            outs, elapsed = run_pipelined(torch, pipe, plan)
+            calls, cuda = (segmented_cc_round.launches,
+                           segmented_cc_round.cuda_launches)
+            if devices is not None:
+                record_path(results, f"{path}_path")
+        finally:
+            if pipe is not fused:
+                pipe.close()
+        if want is None:
+            want = outs
+        for k, o in enumerate(outs):
+            check_against_reference(o, ref, "crnn")
+            same_frames(o, want[k], f"{path} batch {k}")
+        n_rep = 1 if devices is None else len(devices)
+        if calls != 3 * n_rep * N_BATCHES:
+            raise AssertionError(
+                f"{path}: {calls} segmented_cc_round calls over {N_BATCHES} "
+                f"batches, expected {3 * n_rep * N_BATCHES}")
+        rates[path] = B * N_BATCHES / elapsed
+        print(f"data-parallel {path} ({devices or 'no mesh'}): "
+              f"{N_BATCHES} pipelined batches x {B} frames read "
+              f"{sorted(TRUTH)} on every frame, equal to the fused path; "
+              f"{calls} segmented_cc_round calls ({cuda} CUDA launches), "
+              f"{calls / N_BATCHES:g} = {cuda / N_BATCHES:g} a batch; "
+              f"{rates[path]:.3f} frames/s pipelined ({card})")
+
+    # -- two-stage runner ---------------------------------------------------
+    runner = TwoStagePipeline(
+        fused.detector, fused.recognizer, devices=["cuda:0", "cuda:0"],
+        max_dets=64, crop_hw=fused.crop_hw, max_box_frac=fused.max_box_frac)
+    try:
+        runner.run_batches([frames], 0.5)  # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wires = runner.run_batches([frames] * N_BATCHES, 0.5)
+        elapsed = time.perf_counter() - t0
+        calls, cuda = record_path(results, "two_stage_path")
+        if calls != 3 * N_BATCHES:
+            raise AssertionError(f"two-stage: {calls} segmented_cc_round "
+                                 f"calls over {N_BATCHES} batches")
+        for k, (pack,) in enumerate(wires):
+            if pack.shape[:2] != (B, 64) or pack.dtype != np.uint8:
+                raise AssertionError(f"two-stage wire {pack.shape}")
+            out = fused.process_batch(
+                frames, valid, handles={"shards": [{
+                    "pack": torch.from_numpy(pack), "event": None,
+                    "crops": None}], "replicas": [None]})
+            same_frames(out, want[k], f"two-stage batch {k}")
+        print(f"two-stage runner on {runner.stage_devices()}: "
+              f"{N_BATCHES} batches x {B} frames through run_batches equal "
+              f"to the fused path; {calls} segmented_cc_round calls ({cuda} "
+              f"CUDA launches); {B * N_BATCHES / elapsed:.3f} frames/s "
+              f"against {rates['fused']:.3f} fused ({card})")
+    finally:
+        runner.close()
+    trocr = trained_pipeline(state, "trocr")
+    runner = TwoStagePipeline(
+        trocr.detector, trocr.recognizer, use_transformer=True,
+        devices=["cuda:0", "cuda:0"], max_dets=64, crop_hw=trocr.crop_hw,
+        max_box_frac=trocr.max_box_frac)
+    try:
+        want_tr = trocr.process_batch(frames, valid)
+        got_tr = trocr.process_batch(frames, valid,
+                                     handles=runner.dispatch(frames, 0.5))
+        same_frames(got_tr, want_tr, "two-stage TrOCR")
+        check_against_reference(got_tr, ref, "trocr")
+        print(f"two-stage runner, TrOCR: one batch of {B} reads "
+              f"{sorted(TRUTH)} on every frame, as the fused TrOCR path")
+    finally:
+        runner.close()
+    if n_cards >= 2:
+        two = VideoTextPipeline(
+            detector_path=CHECKPOINTS["detector"],
+            recognizer_path=CHECKPOINTS["crnn"], use_transformer_ocr=False,
+            batch_size=B, max_dets=64, host_downscale=640,
+            transfer_format="yuv420", parallel_mode="two_stage")
+        try:
+            same_frames(two.process_batch(frames, valid), want[0],
+                        "two-stage on distinct cards")
+        finally:
+            two.close()
+        print(f"two-stage on distinct cards {two._two_stage.stage_devices()}"
+              f": equal to the fused path")
+    else:
+        print("two-stage on distinct cards: not run (one card visible)")
+
+    # -- data-parallel DBNet training ---------------------------------------
+    res = train_detector_main([
+        "--synthetic", "--n-samples", "20", "--image-size", "160",
+        "--epochs", "1", "--batch-size", "8", "--mesh", "1x1",
+        "--device", "cuda", "--checkpoint-dir", f"{tmp}/dbnet"])
+    if res.get("status") != "success":
+        raise AssertionError(f"train-detector --mesh 1x1: {res}")
+    det = TextDetector(model_path=res["best_model_path"], input_size=160,
+                       device="cuda")
+    with torch.inference_mode():
+        prob = det.probability(torch.zeros(2, 160, 160, 3, dtype=torch.uint8,
+                                           device="cuda"))
+    if not torch.isfinite(prob).all():
+        raise AssertionError("the --mesh 1x1 checkpoint gives non-finite maps")
+    print(f"train-detector --mesh 1x1 --device cuda: one spawned NCCL rank, "
+          f"status success, val_loss {res['best_val_loss']:.4f}, checkpoint "
+          f"read by TextDetector")
+    del det, prob
+
+    tf32_was = torch.backends.cudnn.allow_tf32
+    x, t = dp_inputs(torch)
+    one = {"fp32": dp_first_step(torch, x, t, None, tf32=False)[2]}
+    again = dp_first_step(torch, x, t, None, tf32=True)[2]
+    step, model, one["tf32"] = dp_first_step(torch, x, t, None, tf32=True)
+    one_ms, _ = timed_steps(torch, lambda: step(x, t)["loss"], DP_STEPS)
+    torch.backends.cudnn.allow_tf32 = tf32_was
+    del step, model, x, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"nccl x1": spawn_ranks(dp_step_rank, (DP_STEPS,), 1,
+                                   device="cuda")}
+    if n_cards >= 2:
+        runs[f"nccl x{n_cards}"] = spawn_ranks(
+            dp_step_rank, (DP_STEPS,), n_cards, device="cuda")
+    else:
+        print("NCCL over distinct cards: not run (one card visible)")
+    runs["gloo x2 on cuda:0"] = spawn_ranks(
+        dp_step_rank, (DP_STEPS,), 2, device="cuda", backend="gloo")
+
+    def rel(a, b, key):
+        return abs(a[key] - b[key]) / abs(b[key])
+
+    print(f"DBNet 640x640 global batch {DP_BATCH} float32 from "
+          f"{CHECKPOINTS['detector']}, one process: "
+          f"{float(np.median(one_ms)):.3f} ms/step with TF32 convolutions "
+          f"(median of {DP_STEPS}, CUDA events); a second one-process first "
+          f"step: loss rel {rel(again, one['tf32'], 'loss'):.2e}, gradient "
+          f"norm rel {rel(again, one['tf32'], 'grad_norm'):.2e} ({card})")
+    for name, ranks in runs.items():
+        r0 = ranks[0]
+        if any(r[k] != r0[k] for r in ranks for k in ("fp32", "tf32")):
+            raise AssertionError(f"{name}: the ranks disagree: {ranks}")
+        dl = rel(r0["fp32"], one["fp32"], "loss")
+        dn = rel(r0["fp32"], one["fp32"], "grad_norm")
+        if not (dl <= DP_LOSS_RTOL and dn <= DP_NORM_RTOL):
+            raise AssertionError(
+                f"{name}: float32 loss rel {dl:.2e}, gradient norm rel "
+                f"{dn:.2e} off the one-process step")
+        ms = float(np.median([m for r in ranks for m in r["ms"]]))
+        red = float(np.median([m for r in ranks for m in r["allreduce_ms"]]))
+        print(f"DBNet data-parallel {name} ({r0['backend']}, rows "
+              f"{[r['rows'] for r in ranks]}): true float32 first step "
+              f"against the one process's: loss rel {dl:.2e} (allowed "
+              f"{DP_LOSS_RTOL:g}), gradient norm rel {dn:.2e} (allowed "
+              f"{DP_NORM_RTOL:g}); with TF32: loss rel "
+              f"{rel(r0['tf32'], one['tf32'], 'loss'):.2e}, gradient norm "
+              f"rel {rel(r0['tf32'], one['tf32'], 'grad_norm'):.2e}; "
+              f"{ms:.3f} ms/step (TF32), gradient all-reduce of "
+              f"{r0['grad_bytes'] / 1e6:.1f} MB {red:.3f} ms (medians over "
+              f"ranks and {DP_STEPS} steps); peak "
+              f"{max(r['peak_gib'] for r in ranks):.2f} GiB a rank ({card})")
+    left = multiprocessing.active_children()
+    if left or torch.distributed.is_initialized():
+        raise AssertionError(f"ranks left running: {left}")
+    print("parallel phase: every spawned rank joined, no process group left")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
-          "engine", "beam", "serve", "fleet", "train")
+          "engine", "beam", "serve", "fleet", "train", "parallel")
 
 
 def main(argv=None) -> int:
@@ -2496,6 +2804,7 @@ def main(argv=None) -> int:
         "serve": lambda: serve_phase(torch, np, card, results, state),
         "fleet": lambda: fleet_phase(torch, np, card, results, state),
         "train": lambda: train_phase(torch, np, card),
+        "parallel": lambda: parallel_phase(torch, np, card, results, state),
     }
     for name in PHASES:
         if name in phases:

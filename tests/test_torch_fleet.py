@@ -253,8 +253,11 @@ def test_service_over_tcp_broker_with_worker_process(tmp_path, fleet,
 
 @pytest.mark.parametrize("argv,env,message", [
     (["worker"], {}, "CUDA is not available"),
+    # a world of one: the worker joins it (gloo on the CPU), then goes on
+    # to its broker, which is refused here
     (["worker", "--device", "cpu"],
-     {"VTD_COORDINATOR_ADDRESS": "127.0.0.1:1234"}, "ROADMAP queue 1 item 7"),
+     {"VTD_COORDINATOR_ADDRESS": "127.0.0.1:{port}",
+      "VTD_NUM_PROCESSES": "1"}, "requires a non-local broker"),
     (["worker", "--device", "cpu", "--broker", "local://"], {},
      "requires a non-local broker"),
 ], ids=["no_cuda", "coordinator", "local_broker"])
@@ -263,6 +266,7 @@ def test_worker_refuses(argv, env, message, capsys, monkeypatch):
 
     from vtd_tpu_torch.__main__ import main
     from vtd_tpu_torch.core.config import settings
+    from vtd_tpu_torch.core.mesh import free_port
 
     if "--device" not in argv and torch.cuda.is_available():
         pytest.skip("this checks the behaviour where CUDA is absent")
@@ -272,13 +276,22 @@ def test_worker_refuses(argv, env, message, capsys, monkeypatch):
     before = dict(os.environ)
     # the whole environment comes back: ``worker`` writes DEVICE for the
     # children it would spawn, and the later tests' children inherit it
-    with mock.patch.dict(os.environ):
-        for var in ("VTD_COORDINATOR_ADDRESS", "VTD_NUM_PROCESSES",
-                    "DEVICE"):
-            os.environ.pop(var, None)
-        os.environ.update(env)
-        assert main(argv) == 2
-    assert message in capsys.readouterr().err
+    try:
+        with mock.patch.dict(os.environ):
+            for var in ("VTD_COORDINATOR_ADDRESS", "VTD_NUM_PROCESSES",
+                        "VTD_PROCESS_ID", "DEVICE"):
+                os.environ.pop(var, None)
+            os.environ.update({k: v.format(port=free_port())
+                               for k, v in env.items()})
+            assert main(argv) == 2
+            joined = torch.distributed.is_initialized()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    out = capsys.readouterr()
+    assert message in out.err
+    assert joined == bool(env)
+    assert ("worker: rank 0 of 1 (gloo)" in out.out) == bool(env)
     assert dict(os.environ) == before
 
 

@@ -6,7 +6,8 @@ with the trained TrOCR (restored with ``vtd_tpu``'s loader and carried
 across by ``vtd_tpu_torch.convert``), float32 on both sides: transcripts
 equal, boxes matched at IoU >= 0.95, temporal-dedup tracks equal.
 Also: the overflow second pass, recognition in chunks, the device rule,
-the slices that raise, and that the port never imports JAX.
+the multi-device modes against the fused path, and that the port never
+imports JAX.
 """
 import ast
 import asyncio
@@ -323,14 +324,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     "kwargs",
     [
         {"parallel_mode": "two_stage"},
-        {"mesh": object()},
+        {"mesh": 2},
     ],
 )
-def test_later_slices_raise(kwargs):
+def test_later_slices_raise(kwargs, text_image):
+    """The paths that raised before the multi-device slice (the two-stage
+    runner; a mesh, here of two CPU entries) now run and give the fused
+    one-device pipeline's results."""
+    from vtd_tpu_torch.core.mesh import make_mesh
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
-    with pytest.raises(NotImplementedError):
-        VideoTextPipeline(device="cpu", **kwargs)
+    kw = dict(use_transformer_ocr=False, batch_size=2, max_dets=8,
+              detector_input_size=160, max_box_frac=1.0, device="cpu")
+    if "mesh" in kwargs:
+        kwargs = {"mesh": make_mesh(n_data=kwargs["mesh"], device="cpu")}
+    frames = np.stack([text_image, text_image[::-1].copy()])
+    valid = np.ones(2, bool)
+    pipe = VideoTextPipeline(**kw, **kwargs)
+    try:
+        got = pipe.process_batch(frames, valid)
+    finally:
+        pipe.close()
+    assert got == VideoTextPipeline(**kw).process_batch(frames, valid)
+    assert sum(map(len, got)) > 0
 
 
 def _port_files():

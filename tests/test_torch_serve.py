@@ -688,14 +688,30 @@ def test_process_worker_pool_from_settings(monkeypatch):
         q.shutdown()
 
 
-@pytest.mark.parametrize("key,value,slice_name", [
-    ("data_parallel_chips", 2, "multi-GPU"),
-])
-def test_later_slice_settings_raise(key, value, slice_name, monkeypatch):
+@pytest.mark.parametrize("key,value", [("data_parallel_chips", 2)],
+                         ids=["data_parallel_chips-2-multi-GPU"])
+def test_later_slice_settings_raise(key, value, monkeypatch, clip):
+    """``data_parallel_chips = 2``, which raised before the multi-device
+    slice, serves a job over a mesh of two CPU entries whose results equal
+    the same job served on one device."""
+    import torch_video_tasks
     from vtd_tpu_torch.core.config import settings
-    from vtd_tpu_torch.serve import app, tasks
+    from vtd_tpu_torch.serve import tasks
 
-    monkeypatch.setattr(settings, key, value)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tasks.get_pipeline(False)
-    assert app.main(["--device", "cpu"]) == 2
+    config = {"confidence_threshold": 0.5, "use_transformer": False}
+    rows = []
+    try:
+        for chips in (0, value):
+            monkeypatch.setattr(settings, key, chips)
+            tasks.configure_pipeline(**torch_video_tasks.PIPE)
+            pipe = tasks.get_pipeline(False)
+            assert len(pipe.replicas) == chips
+            rows.append(torch_video_tasks.run_on_thread_worker(clip, config)[1])
+            pipe.close()
+    finally:
+        tasks.configure_pipeline()
+    one, two = (r["result_data"] for r in rows)
+    assert rows[0]["status"] == rows[1]["status"] == "completed"
+    assert two["results"] == one["results"]
+    assert two["summary"]["total_detections"] == \
+        one["summary"]["total_detections"] > 0

@@ -584,8 +584,18 @@ def test_model_trainer_failure_path_and_mesh(tmp_path):
     result = trainer.train(DBNet(dtype=torch.float32), bad, bad)
     assert result["status"] == "failed"
     assert "error" in result
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ModelTrainer({}, mesh=object(), device="cpu")
+    # a mesh: the data axis trains (tests/test_torch_train_mesh.py), the
+    # model axis raises naming its ROADMAP item
+    from vtd_tpu_torch.core.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ModelTrainer({}, mesh=make_mesh(n_data=2, n_model=2, device="cpu"),
+                     device="cpu")
+    one = ModelTrainer({"checkpoint_dir": str(tmp_path / "m"),
+                        "max_epochs": 1, "batch_size": 2},
+                       mesh=make_mesh(n_data=1, device="cpu"), device="cpu")
+    assert one.train(DBNet(dtype=torch.float32), bad, bad)["status"] == \
+        "failed"
 
 
 def test_top_k_checkpoints_drop_stale_ones(tmp_path, tiny_dataset):

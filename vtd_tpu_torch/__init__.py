@@ -22,7 +22,10 @@ Since the fifth: the REST service (``serve/``, ``obs/``,
 in-process thread worker, and keyframe sampling through the cv2 gate.
 Since the sixth: the serving fleet (the file and TCP brokers,
 ``python -m vtd_tpu_torch brokerd | worker``, the process pool, the API
-client) and the ``torch.profiler`` trace behind ``profile_dir``.
+client) and the ``torch.profiler`` trace behind ``profile_dir``. Since
+the seventh: several devices (``core/mesh.py``, ``parallel/``): data-
+parallel inference over a mesh of model replicas, the two-stage runner,
+and data-parallel DBNet training with one process per rank.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

@@ -1,11 +1,12 @@
 """vtd_tpu_torch command-line interface (port of ``vtd_tpu/__main__.py``).
 
   python -m vtd_tpu_torch process <video> [--crnn] [--threshold 0.5] [--out r.json]
+                                  [--data-parallel N | --two-stage]
   python -m vtd_tpu_torch serve [--host H] [--port P] [--device cuda|cpu]
   python -m vtd_tpu_torch worker [--broker tcp://host:6380] [--concurrency N]
                                  [--device cuda|cpu]
   python -m vtd_tpu_torch brokerd [--host H] [--port 6380] [--token T]
-  python -m vtd_tpu_torch train-detector ...    (see train/train_detector.py)
+  python -m vtd_tpu_torch train-detector ... [--mesh Dx1]  (train/train_detector.py)
   python -m vtd_tpu_torch train-recognizer ...  (see train/train_recognizer.py)
   python -m vtd_tpu_torch train-trocr ...       (see train/trocr_trainer.py)
 
@@ -19,12 +20,6 @@ import asyncio
 import json
 import os
 import sys
-
-MULTI_GPU_NOT_PORTED = (
-    "--data-parallel and --two-stage wait for ROADMAP queue 1 item 7 "
-    "(multiple GPUs)"
-)
-
 
 def _cmd_process(argv):
     parser = argparse.ArgumentParser(prog="vtd_tpu_torch process")
@@ -52,18 +47,32 @@ def _cmd_process(argv):
     parser.add_argument("--format", default="json",
                         choices=["json", "csv", "xml"])
     parser.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                        help="not ported (multiple GPUs)")
+                        help="split frame batches over a mesh of the first "
+                             "N devices, one model replica each (0 = one "
+                             "device)")
     parser.add_argument("--two-stage", action="store_true",
-                        help="not ported (multiple GPUs)")
+                        help="pipeline parallelism: detect on half the "
+                             "devices, recognize on the other half")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    if args.data_parallel or args.two_stage:
-        print(MULTI_GPU_NOT_PORTED, file=sys.stderr)
-        return 2
+    if args.device == "cuda":
+        import torch
 
+        if not torch.cuda.is_available():
+            print("process: CUDA is not available; the pipeline runs on the "
+                  "card unless --device cpu is given", file=sys.stderr)
+            return 2
     from .runtime.pipeline import VideoTextPipeline
 
+    mesh = None
+    if args.data_parallel:
+        from .core.mesh import local_devices, make_mesh
+
+        mesh = make_mesh(
+            n_data=args.data_parallel,
+            devices=local_devices(args.data_parallel, args.device),
+        )
     pipeline = VideoTextPipeline(
         detector_path=args.detector or None,
         recognizer_path=args.recognizer or None,
@@ -76,9 +85,14 @@ def _cmd_process(argv):
         sample_mode=args.sample_mode,
         temporal_dedup=args.temporal_dedup,
         max_dets=args.max_dets,
+        mesh=mesh,
+        parallel_mode="two_stage" if args.two_stage else "fused",
         device=args.device,
     )
-    result = asyncio.run(pipeline.process_video(args.video, "."))
+    try:
+        result = asyncio.run(pipeline.process_video(args.video, "."))
+    finally:
+        pipeline.close()
     if args.format == "json":
         payload = json.dumps(result, indent=2, default=str)
     else:
@@ -96,19 +110,6 @@ def _cmd_process(argv):
     else:
         print(payload)
     return 0 if result.get("status") == "success" else 1
-
-
-def check_distributed() -> None:
-    """The counterpart of the reference's ``init_distributed``
-    (``vtd_tpu/core/mesh.py:25-63``): a no-op for one process; the
-    multi-process variables raise NotImplementedError, never ignored."""
-    named = [v for v in ("VTD_COORDINATOR_ADDRESS", "VTD_NUM_PROCESSES")
-             if os.environ.get(v)]
-    if named:
-        raise NotImplementedError(
-            f"{' and '.join(named)} set: multi-process runs wait for "
-            "ROADMAP queue 1 item 7 (multiple GPUs)"
-        )
 
 
 def _cmd_worker(argv):
@@ -136,12 +137,19 @@ def _cmd_worker(argv):
                   "on the card unless --device cpu is given",
                   file=sys.stderr)
             return 2
-    from .serve.tasks import check_settings
+    from .core.mesh import init_distributed
 
+    # Joins the group named by VTD_COORDINATOR_ADDRESS / VTD_NUM_PROCESSES
+    # / VTD_PROCESS_ID, as the reference's worker does; the worker's jobs
+    # run on this process's own device.
     try:
-        check_distributed()
-        check_settings()
-    except NotImplementedError as e:
+        if init_distributed(device=args.device):
+            import torch.distributed as dist
+
+            print(f"worker: rank {dist.get_rank()} of "
+                  f"{dist.get_world_size()} ({dist.get_backend()})",
+                  flush=True)
+    except ValueError as e:
         print(f"worker: {e}", file=sys.stderr)
         return 2
     if args.broker:
@@ -305,8 +313,7 @@ def main(argv=None):
     if cmd == "train-detector":
         from .train.train_detector import main as td_main
 
-        td_main(rest)
-        return 0
+        return 0 if td_main(rest).get("status") == "success" else 1
     if cmd == "train-recognizer":
         from .train.train_recognizer import main as tr_main
 

@@ -9,10 +9,10 @@ The port never needs pydantic for it.
 One setting is new: ``device`` (``DEVICE``), where the serving pipelines
 run, ``"cuda"`` by default. ``serve`` and ``worker`` write their
 ``--device`` back into ``DEVICE``, since the process pool's children
-read their settings from the environment. One is held for a later slice
-and raises when a pipeline is built with it
-(``serve/tasks.py:get_pipeline``): ``data_parallel_chips > 0`` (multiple
-GPUs).
+read their settings from the environment. ``data_parallel_chips = N > 0``
+serves every job over a mesh of the process's first N devices
+(``serve/tasks.py:_build_pipeline``; N entries of the CPU where
+``device`` is ``"cpu"``).
 """
 from __future__ import annotations
 

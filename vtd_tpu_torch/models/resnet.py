@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_sum, current_data_group
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
@@ -37,11 +39,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     itself is torch's fused one, whose variance differs from flax's only
     in rounding. Eval mode is torch's own; the state-dict keys are
     torch's.
+
+    Inside ``parallel.collectives.data_group`` (data-parallel training)
+    the statistics are the whole batch's across the ranks, as in the
+    reference's single GSPMD program: one all-reduce of the sums of
+    ``x - K`` and ``(x - K)^2`` and the count, in float32, gives the global
+    mean and fast variance; the batch is normalised with them and the
+    running statistics are updated from them. Per-rank statistics would be
+    another model. ``K`` is the running mean (the same on every rank): the
+    shift keeps ``E[x^2] - E[x]^2`` from cancelling in channels whose mean
+    is large against their spread, as the trained detector's stem has
+    (``tools/torch_bn_precision.py`` measures it).
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = current_data_group()
+        if group is not None:
+            return self._global_forward(x, group)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         with torch.no_grad():
             dims = (0, 2, 3)
@@ -52,6 +68,30 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         y = F.batch_norm(xf, None, None, self.weight, self.bias,
                          training=True, momentum=0.0, eps=self.eps)
+        return y.to(x.dtype)
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xf.shape[1]
+        dims = (0, 2, 3)
+        shape = (1, c, 1, 1)
+        shift = self.running_mean.to(xf.dtype, copy=True)
+        xs = xf - shift.view(shape)
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = all_reduce_sum(
+            torch.cat([xs.sum(dims), xs.square().sum(dims), count]), group)
+        n = sums[-1]
+        centred = sums[:c] / n
+        mean = shift + centred
+        var = (sums[c:2 * c] / n - centred.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                (1 - BN_MOMENTUM) * mean.detach())
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                (1 - BN_MOMENTUM) * var.detach())
+            self.num_batches_tracked.add_(1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

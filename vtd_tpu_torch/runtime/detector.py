@@ -7,6 +7,7 @@ float16 boxes, polygons, scores and validity comes back to the host.
 """
 from __future__ import annotations
 
+import copy
 import logging
 from typing import Any, Dict, List, Optional
 
@@ -59,6 +60,14 @@ class TextDetector:
         else:
             seeded_init_(model, seed)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
+
+    def replica(self, device) -> "TextDetector":
+        """This detector with its own copy of the model on ``device`` (the
+        same weights and compute dtype; no checkpoint is read)."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        new.model = copy.deepcopy(self.model).to(new.device)
+        return new
 
     # ------------------------------------------------------------------
     def probability(self, frames_u8: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,17 @@ and every transformer chunk ``recognizer_chunk_occupancy``
 kernels, written as a Chrome trace to
 ``<profile_dir>/process_video-<pid>-<unix ms>.json``.
 
-Not in this slice: multi-device meshes and the two-stage runner (each
-raises NotImplementedError).
+``mesh`` (``core.mesh.make_mesh``) runs the batch data-parallel: each
+data-axis entry holds its own copy of the detector and the recogniser on
+its device and runs its contiguous block of the batch in its own thread
+and, on the card, its own CUDA stream (``parallel.sharding.Replica``);
+the packs are gathered in block order. The recognition budget stays the
+batch's: each block recognises its share of it, and a block whose valid
+slots exceed that share is dispatched again at the full budget, so that
+every transcript the single-device program would give is kept.
+``parallel_mode="two_stage"`` swaps in ``parallel.pipeline.
+TwoStagePipeline`` (detect and crop on one group of devices, recognise on
+the other) behind the same handles.
 """
 from __future__ import annotations
 
@@ -45,11 +54,15 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import DATA_AXIS, MODEL_AXIS, MODEL_AXIS_NOT_PORTED
 from ..core.schemas import summarize
 from ..obs import metrics as _metrics
 from ..ops.crop import crop_and_resize_boxes_mm
 from ..ops.ctc import ctc_greedy_decode_arrays, emit_mask_np, ids_to_text
 from ..ops.db_postprocess import db_postprocess
+from ..parallel.sharding import (
+    Replica, batch_sharding, gather, shard_variables,
+)
 from ..video.processor import VideoProcessor
 from .detector import TextDetector
 from .recognizer import TextRecognizer
@@ -95,6 +108,119 @@ def _profile_span(profile_dir: Optional[str], device: torch.device):
         prof.export_chrome_trace(path)
     finally:
         _trace_lock.release()
+
+
+def detect_and_crop(
+    detector: TextDetector,
+    frames_u8: torch.Tensor,
+    thresh: float,
+    frame_valid: torch.Tensor,
+    max_dets: int,
+    max_box_frac: float,
+    crop_hw,
+):
+    """The detection half of the per-batch program: I420 unpack ->
+    preprocess -> DBNet probability -> DB postprocess -> crop every slot.
+    Returns the det block [B, K, 14] float32 (boxes 4, polygon 8, score,
+    valid; ``frame_valid`` False clears a frame's slots) and the crops
+    [B*K, H, W, 3] in [0, 1]."""
+    k = max_dets
+    size = detector.input_size
+    out_h, out_w = crop_hw
+    if frames_u8.dim() == 3:  # I420-packed [B, H*3/2, W]
+        from ..ops.preprocess import yuv420_to_bgr
+
+        frames_u8 = yuv420_to_bgr(frames_u8)
+    b, h, w = frames_u8.shape[:3]
+    prob = detector.probability(frames_u8)
+    post = db_postprocess(prob, thresh, max_dets=k, max_box_frac=max_box_frac)
+    # padding frames (batch tails) must not produce valid slots
+    valid = post["valid"] & frame_valid[:, None]
+    scale = torch.tensor(
+        [w / size, h / size, w / size, h / size],
+        dtype=torch.float32, device=prob.device,
+    )
+    crops = crop_and_resize_boxes_mm(
+        frames_u8, post["boxes"] * scale, valid, out_h=out_h, out_w=out_w
+    ).reshape(b * k, out_h, out_w, 3)
+    det = torch.cat([
+        post["boxes"],
+        post["polygons"].reshape(b, k, 8),
+        post["scores"][..., None],
+        valid.to(torch.float32)[..., None],
+    ], -1)
+    return det, crops
+
+
+def trocr_input(crops: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """BGR [0,1] crops -> RGB, mean/std 0.5 (the TrOCR processor's
+    normalisation), in the encoder's input type."""
+    return ((crops.flip(-1) - 0.5) / 0.5).to(dtype)
+
+
+def recognize_pack(
+    recognizer: TextRecognizer,
+    det: torch.Tensor,
+    crops: torch.Tensor,
+    budget: int,
+    pack_dt: torch.dtype,
+) -> torch.Tensor:
+    """The CRNN half: CRNN + greedy CTC on the top-``budget`` slots by
+    (valid, score) -> the uint8 pack [B, K, nbytes]: the det block and the
+    CTC confidence as ``pack_dt`` bytes, then the T ids."""
+    b, k = det.shape[:2]
+    bk = b * k
+    if budget < bk:
+        # recognize the top-``budget`` slots by (valid, score), lower
+        # slot first on ties as jax.lax.top_k, and scatter back
+        key = det[..., 13].reshape(bk) * 2.0 + det[..., 12].reshape(bk)
+        sel = torch.sort(key, descending=True, stable=True).indices[:budget]
+        ctc_r = ctc_greedy_decode_arrays(recognizer.logits(crops[sel]))
+        conf = torch.zeros(bk, dtype=torch.float32, device=det.device)
+        conf[sel] = ctc_r["confidence"]
+        ids = torch.zeros(
+            (bk, ctc_r["ids"].shape[-1]), dtype=torch.int32, device=det.device,
+        )
+        ids[sel] = ctc_r["ids"]
+    else:
+        ctc_r = ctc_greedy_decode_arrays(recognizer.logits(crops))
+        conf, ids = ctc_r["confidence"], ctc_r["ids"]
+    det_bytes = torch.cat([det, conf.reshape(b, k, 1)], -1).to(
+        pack_dt).view(torch.uint8).reshape(b, k, -1)
+    return torch.cat([det_bytes, ids.reshape(b, k, -1).to(torch.uint8)], -1)
+
+
+def upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host frames onto ``device``: on the card from pinned memory,
+    ``non_blocking`` on the current stream."""
+    host = torch.from_numpy(np.ascontiguousarray(frames))
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def ship_pack(pack: torch.Tensor, crops: Optional[torch.Tensor] = None):
+    """The handle of one block: on the card the pack is copied into
+    pinned host memory behind an event recorded on the pack's device's
+    current stream; ``crops`` stay where they are."""
+    if pack.device.type != "cuda":
+        return {"pack": pack, "event": None, "crops": crops}
+    out = torch.empty(pack.shape, dtype=torch.uint8, pin_memory=True)
+    out.copy_(pack, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(pack.device))
+    return {"pack": out, "event": event, "crops": crops}
+
+
+def collect(handles: Dict[str, Any]):
+    """Wait for every block of dispatched handles -> (the batch's pack
+    [B, K, nbytes] as a numpy array, the blocks' handles)."""
+    parts = gather(handles["shards"])
+    for part in parts:
+        if part["event"] is not None:
+            part["event"].synchronize()
+    packs = [part["pack"].numpy() for part in parts]
+    return (packs[0] if len(packs) == 1 else np.concatenate(packs)), parts
 
 
 def _dedup_summary(all_results: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -143,13 +269,33 @@ class VideoTextPipeline:
         preserve_aspect: bool = True,
         mesh: Optional[Any] = None,
         parallel_mode: str = "fused",
-        device: str = "cuda",
+        device: Optional[str] = None,
     ):
-        if mesh is not None or parallel_mode != "fused":
-            raise NotImplementedError(
-                "mesh and parallel_mode='two_stage' wait for the port's "
-                "multi-GPU slice"
+        """``device``: where the models are loaded; default the mesh's
+        first entry, else ``"cuda"``."""
+        if parallel_mode not in ("fused", "two_stage"):
+            raise ValueError(f"unknown parallel_mode {parallel_mode!r}")
+        if parallel_mode == "two_stage" and mesh is not None:
+            raise ValueError(
+                "mesh (data parallel) and parallel_mode='two_stage' are "
+                "mutually exclusive; two_stage builds its own stage groups"
             )
+        if rec_budget is not None and parallel_mode == "two_stage":
+            raise ValueError(
+                "rec_budget is not supported with parallel_mode="
+                "'two_stage' (the two-stage runner recognizes every "
+                "slot); drop the knob or use the fused mode"
+            )
+        if mesh is not None:
+            if mesh.shape[MODEL_AXIS] > 1:
+                raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+            if batch_size % mesh.shape[DATA_AXIS]:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh "
+                    f"data axis ({mesh.shape[DATA_AXIS]})"
+                )
+        if device is None:
+            device = mesh.data_devices()[0] if mesh is not None else "cuda"
         self.device = resolve_device(device)
         self.detector = TextDetector(
             detector_path, input_size=detector_input_size,
@@ -206,6 +352,43 @@ class VideoTextPipeline:
         # Overflow recovery: once one batch has more valid detections
         # than the budget, every later batch recognizes every slot.
         self._full_budget_latched = False
+        self.mesh = mesh
+        self.parallel_mode = parallel_mode
+        # one Replica per data-axis entry; none on one device
+        self.replicas: List[Replica] = []
+        self._two_stage = None
+        if mesh is not None:
+            self.replicas = [
+                Replica(d, det, rec) for d, det, rec in zip(
+                    mesh.data_devices(),
+                    shard_variables(self.detector, mesh),
+                    shard_variables(self.recognizer, mesh),
+                )
+            ]
+        elif parallel_mode == "two_stage":
+            from ..parallel.pipeline import TwoStagePipeline
+
+            self._two_stage = TwoStagePipeline(
+                self.detector, self.recognizer,
+                use_transformer=self.use_transformer, max_dets=max_dets,
+                crop_hw=self.crop_hw, max_box_frac=max_box_frac,
+                device=self.device.type,
+            )
+            for g in self._two_stage.group_sizes:
+                if batch_size % g:
+                    raise ValueError(
+                        f"batch_size {batch_size} not divisible by "
+                        f"two-stage device groups "
+                        f"{self._two_stage.group_sizes}"
+                    )
+
+    def close(self) -> None:
+        """End the replicas' threads (a pipeline without a mesh or a
+        second stage has none)."""
+        for rep in self.replicas:
+            rep.close()
+        if self._two_stage is not None:
+            self._two_stage.close()
 
     # ------------------------------------------------------------------
     def _effective_rec_budget(self, b: int) -> int:
@@ -214,85 +397,40 @@ class VideoTextPipeline:
         bk = b * self.max_dets
         return min(bk, self.rec_budget or max(2 * self.max_dets, bk // 4))
 
+    def _shard_budget(self, b: int, n: int) -> int:
+        """Recognized slots of each of ``n`` blocks of a b-frame batch: an
+        even share of the batch's budget (the whole of it for n = 1)."""
+        return min((b // n) * self.max_dets,
+                   -(-self._effective_rec_budget(b) // n))
+
     def _run_batch(
         self,
         frames_u8: torch.Tensor,
         thresh: float,
         frame_valid: torch.Tensor,
-        full_budget: bool,
+        budget: int,
+        replica: Optional[Replica] = None,
     ):
-        """The per-batch device program -> (uint8 pack [B, K, nbytes],
-        crops or None). CRNN engine: det block (boxes 4, polygon 8,
-        score, valid, CTC confidence) as float16 (float32 above
-        ``_F16_SAFE_INPUT``) bytes, then T ids; no crops. Transformer
-        engine: the 14-column det block alone, and the normalised crops
-        [B*K, H, W, 3] that stay on the device."""
-        k = self.max_dets
-        size = self.detector.input_size
-        out_h, out_w = self.crop_hw
-        if frames_u8.dim() == 3:  # I420-packed [B, H*3/2, W]
-            from ..ops.preprocess import yuv420_to_bgr
-
-            frames_u8 = yuv420_to_bgr(frames_u8)
-        b, h, w = frames_u8.shape[:3]
-        prob = self.detector.probability(frames_u8)
-        post = db_postprocess(
-            prob, thresh, max_dets=k, max_box_frac=self.max_box_frac
+        """The per-batch device program on ``replica``'s models (the
+        pipeline's own without one) -> (uint8 pack [B, K, nbytes], crops
+        or None). CRNN engine: det block (boxes 4, polygon 8, score,
+        valid, CTC confidence) as float16 (float32 above
+        ``_F16_SAFE_INPUT``) bytes, then T ids, the CRNN run on the top
+        ``budget`` slots; no crops. Transformer engine: the 14-column det
+        block alone, and the normalised crops [B*K, H, W, 3] that stay on
+        the device."""
+        det_model = self.detector if replica is None else replica.detector
+        rec = self.recognizer if replica is None else replica.recognizer
+        det, crops = detect_and_crop(
+            det_model, frames_u8, thresh, frame_valid, self.max_dets,
+            self.max_box_frac, self.crop_hw,
         )
-        # padding frames (batch tails) must not produce valid slots
-        valid = post["valid"] & frame_valid[:, None]
-        scale = torch.tensor(
-            [w / size, h / size, w / size, h / size],
-            dtype=torch.float32, device=prob.device,
-        )
-        crops = crop_and_resize_boxes_mm(
-            frames_u8, post["boxes"] * scale, valid, out_h=out_h, out_w=out_w
-        ).reshape(b * k, out_h, out_w, 3)
-
         pack_dt = torch.float16 if self._pack_np == np.float16 else torch.float32
-        det_cols = [
-            post["boxes"],
-            post["polygons"].reshape(b, k, 8),
-            post["scores"][..., None],
-            valid.to(torch.float32)[..., None],
-        ]
         if self.use_transformer:
-            det = torch.cat(det_cols, -1).to(pack_dt)
-            # BGR [0,1] -> RGB, mean/std 0.5 (the TrOCR processor's
-            # normalisation), held in the encoder's input type
-            crops = ((crops.flip(-1) - 0.5) / 0.5).to(
-                self.recognizer.transformer.cfg.dtype
-            )
-            return det.view(torch.uint8).reshape(b, k, -1), crops
-
-        bk = b * k
-        budget = bk if full_budget else self._effective_rec_budget(b)
-        if budget < bk:
-            # recognize the top-``budget`` slots by (valid, score), lower
-            # slot first on ties as jax.lax.top_k, and scatter back
-            key = valid.reshape(bk).to(torch.float32) * 2.0 + post[
-                "scores"
-            ].reshape(bk)
-            sel = torch.sort(key, descending=True, stable=True).indices[
-                :budget
-            ]
-            ctc_r = ctc_greedy_decode_arrays(
-                self.recognizer.logits(crops[sel])
-            )
-            conf = torch.zeros(bk, dtype=torch.float32, device=prob.device)
-            conf[sel] = ctc_r["confidence"]
-            ids = torch.zeros(
-                (bk, ctc_r["ids"].shape[-1]), dtype=torch.int32,
-                device=prob.device,
-            )
-            ids[sel] = ctc_r["ids"]
-        else:
-            ctc_r = ctc_greedy_decode_arrays(self.recognizer.logits(crops))
-            conf, ids = ctc_r["confidence"], ctc_r["ids"]
-        det = torch.cat(det_cols + [conf.reshape(b, k, 1)], -1).to(pack_dt)
-        det_bytes = det.view(torch.uint8).reshape(b, k, -1)
-        ids_u8 = ids.reshape(b, k, -1).to(torch.uint8)
-        return torch.cat([det_bytes, ids_u8], -1), None
+            b, k = det.shape[:2]
+            det_bytes = det.to(pack_dt).view(torch.uint8).reshape(b, k, -1)
+            return det_bytes, trocr_input(crops, rec.transformer.cfg.dtype)
+        return recognize_pack(rec, det, crops, budget, pack_dt), None
 
     # ------------------------------------------------------------------
     def ship_dims(self, video_info: Dict[str, Any]):
@@ -321,9 +459,14 @@ class VideoTextPipeline:
         confidence_threshold: Optional[float] = None,
         valid_frames: Optional[np.ndarray] = None,
         full_budget: bool = False,
+        shards: Optional[List[int]] = None,
     ) -> Dict[str, Any]:
-        """Enqueue the device program for one batch; the result pack is
-        copied into pinned host memory behind an event."""
+        """Enqueue the device program for one batch -> handles: the
+        ``shards`` (one handle, or a Future of one, per block of the
+        batch, in order; a mesh dispatches only the listed blocks when
+        ``shards`` is given) and the ``replicas`` that hold each block's
+        crops. Each block's pack is copied into pinned host memory behind
+        an event."""
         thr = (
             self.confidence_threshold
             if confidence_threshold is None
@@ -333,32 +476,41 @@ class VideoTextPipeline:
             np.ones(len(frames), bool) if valid_frames is None
             else np.asarray(valid_frames, bool)
         )
-        on_cuda = self.device.type == "cuda"
-        host = torch.from_numpy(np.ascontiguousarray(frames))
-        if on_cuda:
-            host = host.pin_memory()
-        with torch.inference_mode():
-            frames_dev = host.to(self.device, non_blocking=on_cuda)
-            valid_dev = torch.from_numpy(valid).to(self.device)
-            pack, crops = self._run_batch(
-                frames_dev, thr, valid_dev,
-                full_budget or self._full_budget_latched,
-            )
-            if not on_cuda:
-                return {"pack": pack, "event": None, "crops": crops}
-            out = torch.empty(
-                pack.shape, dtype=torch.uint8, pin_memory=True
-            )
-            out.copy_(pack, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        return {"pack": out, "event": event, "crops": crops}
+        if self._two_stage is not None:
+            return self._two_stage.dispatch(frames, thr)
+        b = len(frames)
+        n = max(1, len(self.replicas))
+        if full_budget or self._full_budget_latched:
+            budget = (b // n) * self.max_dets
+        else:
+            budget = self._shard_budget(b, n)
+        if not self.replicas:
+            return {"shards": [self._dispatch_on(None, frames, thr, valid,
+                                                 budget)],
+                    "replicas": [None]}
+        blocks = list(zip(batch_sharding(frames, n), batch_sharding(valid, n)))
+        picked = range(n) if shards is None else shards
+        return {
+            "shards": [self.replicas[i].submit(
+                self._dispatch_on, blocks[i][0], thr, blocks[i][1], budget)
+                for i in picked],
+            "replicas": [self.replicas[i] for i in picked],
+        }
 
-    @staticmethod
-    def _collect(handles: Dict[str, Any]) -> np.ndarray:
-        if handles["event"] is not None:
-            handles["event"].synchronize()
-        return handles["pack"].numpy()
+    def _dispatch_on(self, replica: Optional[Replica], frames: np.ndarray,
+                     thr: float, valid: np.ndarray, budget: int):
+        """Upload one block (pinned, ``non_blocking`` on the card) and run
+        the program on ``replica`` (in its thread) or on the pipeline's own
+        models (in the caller's)."""
+        device = self.device if replica is None else replica.device
+        with torch.inference_mode():
+            frames_dev = upload(frames, device)
+            valid_dev = torch.from_numpy(valid).to(device)
+            pack, crops = self._run_batch(frames_dev, thr, valid_dev, budget,
+                                          replica)
+            return ship_pack(pack, crops)
+
+    _collect = staticmethod(collect)
 
     def _parse_pack(self, out_pack: np.ndarray, b: int) -> Dict[str, Any]:
         """Decode the pack: det block of 14 columns, plus on the CRNN
@@ -386,13 +538,15 @@ class VideoTextPipeline:
             "ctc": ctc,
         }
 
-    def _recognize_slots(
-        self, crops_flat: torch.Tensor, need: List[int]
-    ) -> Dict[int, Any]:
-        """Transformer engine: decode the kept slots in chunks of
-        ``rec_chunk``. Every chunk is enqueued before the first result is
-        read, so the host waits for the device once per batch."""
-        tr = self.recognizer.transformer
+    def _decode_chunks(self, replica: Optional[Replica],
+                       crops_flat: torch.Tensor, need: List[int]):
+        """Transformer engine: decode the slots ``need`` of one block's
+        crops in chunks of ``rec_chunk`` on ``replica``'s recogniser (the
+        pipeline's own without one) -> (tokens, confidences) on the host.
+        Every chunk is enqueued before the first result is read, so the
+        host waits for the device once per block."""
+        rec = self.recognizer if replica is None else replica.recognizer
+        tr = rec.transformer
         outs = []
         for c0 in range(0, len(need), self.rec_chunk):
             chunk = need[c0:c0 + self.rec_chunk]
@@ -403,14 +557,36 @@ class VideoTextPipeline:
             _metrics.recognizer_chunk_occupancy.observe(
                 len(chunk) / self.rec_chunk
             )
-        if not outs:
-            return {}
         toks = torch.cat([t for t, _ in outs]).cpu().numpy()
         confs = torch.cat([c for _, c in outs]).cpu().numpy()
-        return {
-            flat: (tr.tokenizer.decode(toks[i]), float(confs[i]))
-            for i, flat in enumerate(need)
-        }
+        return toks, confs
+
+    def _recognize_slots(
+        self, handles: Dict[str, Any], parts: List[Dict[str, Any]],
+        need: List[int], b: int,
+    ) -> Dict[int, Any]:
+        """Transformer engine: each block's kept slots are decoded on the
+        replica that holds its crops (in its thread, the blocks at once)
+        -> {flat slot: (text, confidence)}."""
+        per_block = (b // len(parts)) * self.max_dets
+        by_block: Dict[int, List[int]] = {}
+        for flat in need:
+            by_block.setdefault(flat // per_block, []).append(flat)
+        jobs = []
+        for blk, flats in by_block.items():
+            local = [f - blk * per_block for f in flats]
+            rep = handles["replicas"][blk]
+            crops = parts[blk]["crops"]
+            jobs.append((flats, self._decode_chunks(None, crops, local)
+                         if rep is None else
+                         rep.submit(self._decode_chunks, crops, local)))
+        tok = self.recognizer.transformer.tokenizer
+        texts: Dict[int, Any] = {}
+        for flats, (toks, confs) in zip([f for f, _ in jobs],
+                                        gather([j for _, j in jobs])):
+            for i, flat in enumerate(flats):
+                texts[flat] = (tok.decode(toks[i]), float(confs[i]))
+        return texts
 
     def _process_batch(
         self, frames: np.ndarray, valid_frames: np.ndarray, handles=None,
@@ -434,34 +610,48 @@ class VideoTextPipeline:
                 frames, valid_frames=valid_frames,
                 confidence_threshold=confidence_threshold,
             )
-        parsed = self._parse_pack(self._collect(handles), b)
+        out_pack, parts = self._collect(handles)
+        parsed = self._parse_pack(out_pack, b)
 
-        # Slots past the recognition budget carry blank transcripts: a
-        # batch that overflows is dispatched again with the full budget
-        # (its pack is authoritative for everything), and the pipeline
+        # Slots past the recognition budget carry blank transcripts. Each
+        # block recognises its share of the batch's budget; a block with
+        # more valid detections than that is dispatched again with the
+        # full budget (its pack is authoritative for everything in it).
+        # When the batch as a whole overflows its budget, the pipeline
         # latches to the full budget for every later batch.
-        n_valid = int(np.count_nonzero(parsed["valid"]))
-        budget = self._effective_rec_budget(b)
         if (
             parsed["ctc"] is not None
-            and n_valid > budget
+            and self._two_stage is None
             and not self._full_budget_latched
         ):
-            if not self._rec_budget_warned:
-                self._rec_budget_warned = True
-                logger.warning(
-                    "batch has %d valid detections but the recognition "
-                    "budget is %d: recovering via a full-budget second "
-                    "pass and latching to the full budget. Raise "
-                    "rec_budget (up to batch_size*max_dets) to avoid it.",
-                    n_valid, budget,
-                )
-            self._full_budget_latched = True
-            full = self._dispatch_batch(
-                frames, confidence_threshold=confidence_threshold,
-                valid_frames=valid_frames, full_budget=True,
-            )
-            parsed = self._parse_pack(self._collect(full), b)
+            n = len(parts)
+            per_block = parsed["valid"].reshape(n, -1).sum(1)
+            over = [int(i) for i in
+                    np.nonzero(per_block > self._shard_budget(b, n))[0]]
+            n_valid = int(per_block.sum())
+            budget = self._effective_rec_budget(b)
+            if n_valid > budget:
+                if not self._rec_budget_warned:
+                    self._rec_budget_warned = True
+                    logger.warning(
+                        "batch has %d valid detections but the recognition "
+                        "budget is %d: recovering via a full-budget second "
+                        "pass and latching to the full budget. Raise "
+                        "rec_budget (up to batch_size*max_dets) to avoid "
+                        "it.", n_valid, budget,
+                    )
+                self._full_budget_latched = True
+            if over:
+                redo, _ = self._collect(self._dispatch_batch(
+                    frames, confidence_threshold=confidence_threshold,
+                    valid_frames=valid_frames, full_budget=True, shards=over,
+                ))
+                rows = b // n
+                out_pack = out_pack.copy()
+                for k, blk in enumerate(over):
+                    out_pack[blk * rows:(blk + 1) * rows] = redo[
+                        k * rows:(k + 1) * rows]
+                parsed = self._parse_pack(out_pack, b)
 
         boxes = parsed["boxes"]
         polys = parsed["polys"]
@@ -481,7 +671,7 @@ class VideoTextPipeline:
         polys_int = np.round(polys).astype(int)
         texts: Dict[int, Any] = {}
         if ctc is None:
-            texts = self._recognize_slots(handles["crops"], need)
+            texts = self._recognize_slots(handles, parts, need, b)
         elif need:
             sel = np.asarray(need)
             decoded = ids_to_text(ctc["ids"][sel], ctc["emit"][sel])

@@ -11,6 +11,7 @@ the log-softmax there and decodes on the host with the C++ prefix beam
 """
 from __future__ import annotations
 
+import copy
 import logging
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -80,6 +81,17 @@ class TextRecognizer:
         else:
             seeded_init_(crnn, seed)
         self.crnn = crnn.to(self.device).eval()
+
+    def replica(self, device) -> "TextRecognizer":
+        """This recognizer with its own copy of the model on ``device``
+        (no checkpoint is read)."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        if self.use_transformer:
+            new.transformer = self.transformer.replica(new.device)
+        else:
+            new.crnn = copy.deepcopy(self.crnn).to(new.device)
+        return new
 
     def logits(self, crops: torch.Tensor) -> torch.Tensor:
         """[N, 32, 128, 3] float crops in [0, 1] (NHWC) -> [N, 31, 97]."""

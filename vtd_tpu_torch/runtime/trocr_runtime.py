@@ -17,6 +17,7 @@ fill. ``pad_batch`` stays as the pipeline's default chunk size.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 from pathlib import Path
@@ -65,6 +66,14 @@ class TransformerRecognizer:
         else:
             init_weights_(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+
+    def replica(self, device) -> "TransformerRecognizer":
+        """This recognizer with its own copy of the model on ``device``
+        (no checkpoint is read)."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        new.model = copy.deepcopy(self.model).to(new.device)
+        return new
 
     @staticmethod
     def _sidecar_config(model_path: str) -> Optional[TrOCRConfig]:

@@ -652,7 +652,6 @@ def main(argv=None) -> int:
     import sys
 
     from .http import Server
-    from .tasks import check_settings
 
     parser = argparse.ArgumentParser(prog="vtd_tpu_torch serve")
     parser.add_argument("--host", default="0.0.0.0")
@@ -669,11 +668,6 @@ def main(argv=None) -> int:
             print("serve: CUDA is not available; the service runs on the "
                   "card unless --device cpu is given", file=sys.stderr)
             return 2
-    try:
-        check_settings()
-    except NotImplementedError as e:
-        print(f"serve: {e}", file=sys.stderr)
-        return 2
     settings.device = args.device
     os.environ["DEVICE"] = args.device  # what pool children read
 

@@ -100,20 +100,7 @@ def configure_pipeline(**kwargs) -> None:
     _pipelines.clear()
 
 
-def check_settings() -> None:
-    """Raise NotImplementedError for ``data_parallel_chips > 0``: its
-    path comes with the port's multi-GPU slice, and serving must not
-    quietly run on one card."""
-    # env vars arrive as strings; "0" must not enable the mesh
-    if int(settings.data_parallel_chips or 0) > 0:
-        raise NotImplementedError(
-            "data_parallel_chips > 0 waits for the port's multi-GPU slice "
-            "(ROADMAP queue 1 item 7)"
-        )
-
-
 def get_pipeline(use_transformer: bool = False):
-    check_settings()
     # Active registry rows override the standard checkpoint locations
     # (the reference's model_versions table is never read; here the
     # active version is the serving contract).
@@ -180,6 +167,13 @@ def _build_pipeline(use_transformer, active, trocr_ckpt):
     det_ckpt = os.path.join(settings.model_path, "text_detector")
     if os.path.exists(det_ckpt):
         kwargs.setdefault("detector_path", det_ckpt)
+    # env vars arrive as strings; "0" must not enable the mesh
+    n_dp = int(settings.data_parallel_chips or 0)
+    if n_dp > 0 and "mesh" not in kwargs:
+        from ..core.mesh import local_devices, make_mesh
+
+        kwargs["mesh"] = make_mesh(
+            n_data=n_dp, devices=local_devices(n_dp, kwargs["device"]))
     if use_transformer:
         kwargs["recognizer_path"] = trocr_ckpt
     else:

@@ -5,12 +5,19 @@ probabilities clipped to [EPS, 1 - EPS] before the logs, as the
 reference takes them. ``F.binary_cross_entropy`` would clamp each log at
 -100 instead, which differs wherever a probability is within EPS of 0
 or 1.
+
+Inside ``parallel.collectives.data_group`` each loss is the whole
+batch's across the ranks: BCE from the all-reduced error sum and count,
+Dice from the all-reduced ``sum p*t``, ``sum p`` and ``sum t`` (a mean of
+per-rank Dice losses is not the global Dice).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.collectives import all_reduce_sum, current_data_group
 
 EPS = 1e-7
 
@@ -28,11 +35,19 @@ def bce_loss(
     p = pred.to(torch.float32).clamp(EPS, 1.0 - EPS)
     t = target.to(torch.float32)
     err = -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
+    group = current_data_group()
     if sample_weight is None:
-        return err.mean()
+        if group is None:
+            return err.mean()
+        total, n = all_reduce_sum(
+            torch.stack([err.sum(), err.new_tensor(float(err.numel()))]),
+            group)
+        return total / n
     w = _per_sample(sample_weight, err)
-    denom = torch.clamp(w.sum() * err[0].numel(), min=1.0)
-    return (err * w).sum() / denom
+    total, n = (err * w).sum(), w.sum() * err[0].numel()
+    if group is not None:
+        total, n = all_reduce_sum(torch.stack([total, n]), group)
+    return total / torch.clamp(n, min=1.0)
 
 
 def dice_loss(
@@ -45,8 +60,12 @@ def dice_loss(
         w = _per_sample(sample_weight, p)
         p = p * w
         t = t * w
-    inter = (p * t).sum()
-    dice = (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+    inter, p_sum, t_sum = (p * t).sum(), p.sum(), t.sum()
+    group = current_data_group()
+    if group is not None:
+        inter, p_sum, t_sum = all_reduce_sum(
+            torch.stack([inter, p_sum, t_sum]), group)
+    dice = (2.0 * inter + smooth) / (p_sum + t_sum + smooth)
     return 1.0 - dice
 
 

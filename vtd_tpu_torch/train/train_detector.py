@@ -7,7 +7,7 @@ reference's numpy seeds, so the loop runs with no data on disk.
 
 Usage:
   python -m vtd_tpu_torch train-detector --synthetic --epochs 5 \
-      --checkpoint-dir ./checkpoints/dbnet [--device cuda]
+      --checkpoint-dir ./checkpoints/dbnet [--device cuda] [--mesh 2x1]
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def synthesize_detection_data(
     return images, targets
 
 
-def main(argv=None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--n-samples", type=int, default=64)
@@ -79,18 +79,28 @@ def main(argv=None) -> dict:
     parser.add_argument("--data", default="", help="npz with images/targets")
     parser.add_argument(
         "--mesh", default="",
-        help="'DxM' data x model mesh: not ported yet (ROADMAP queue 1 "
-             "item 7)",
+        help="'DxM' data x model mesh, e.g. 2x1: D data-parallel ranks, "
+             "one process each (M > 1 is not ported)",
     )
     parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    return parser
 
+
+def _mesh_shape(text: str) -> Tuple[int, int]:
+    d, m = (int(v) for v in text.lower().split("x"))
+    if d < 1 or m < 1:
+        raise ValueError(f"bad mesh {text!r}")
+    return d, m
+
+
+def train(args: argparse.Namespace) -> dict:
+    """One training run of the command in this process (a rank of its
+    group under ``--mesh``); returns the trainer's result."""
+    from ..core.device import resolve_device
+    from ..core.mesh import make_mesh
     from ..models.dbnet import DBNet
-    from .trainer import MESH_NOT_PORTED, ModelTrainer, TextDetectionDataset
+    from .trainer import ModelTrainer, TextDetectionDataset
 
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if args.synthetic or not args.data:
         images, targets = synthesize_detection_data(
             args.n_samples, args.image_size
@@ -110,6 +120,12 @@ def main(argv=None) -> dict:
     val_ds = TextDetectionDataset(
         images[split:], {k: v[split:] for k, v in targets.items()}
     )
+    mesh = None
+    if args.mesh:
+        # each rank computes on its own device; the mesh gives the shape
+        d, m = _mesh_shape(args.mesh)
+        mesh = make_mesh(n_data=d, n_model=m,
+                         devices=[resolve_device(args.device)] * (d * m))
     trainer = ModelTrainer(
         {
             "checkpoint_dir": args.checkpoint_dir,
@@ -118,9 +134,45 @@ def main(argv=None) -> dict:
             "learning_rate": args.learning_rate,
             "weight_decay": args.weight_decay,
         },
+        mesh=mesh,
         device=args.device,
     )
-    result = trainer.train(DBNet(dtype=torch.float32), train_ds, val_ds)
+    return trainer.train(DBNet(dtype=torch.float32), train_ds, val_ds)
+
+
+def _rank_train(rank: int, args: argparse.Namespace) -> dict:
+    """A spawned rank of ``--mesh``: a failed run raises, so that the
+    launcher stops the other ranks at once."""
+    result = train(args)
+    if result.get("status") != "success":
+        raise RuntimeError(f"training failed: {result.get('error')}")
+    return result
+
+
+def main(argv=None) -> dict:
+    """Run the command. ``--mesh Dx1`` outside a process group spawns D
+    ranks (gloo on the CPU, NCCL on the card) and returns rank 0's result,
+    or a failed result naming the rank that failed; a process already in
+    a group is one rank of it."""
+    args = _parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    if args.mesh:
+        from ..core.mesh import MODEL_AXIS_NOT_PORTED, spawn_ranks
+
+        d, m = _mesh_shape(args.mesh)
+        if m > 1:
+            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
+        if not torch.distributed.is_initialized():
+            try:
+                result = spawn_ranks(_rank_train, (args,), world_size=d,
+                                     device=args.device)[0]
+            except RuntimeError as e:
+                result = {"status": "failed", "error": str(e)}
+            print(json.dumps(
+                {k: v for k, v in result.items() if k != "history"}))
+            return result
+    result = train(args)
     print(json.dumps({k: v for k, v in result.items() if k != "history"}))
     return result
 

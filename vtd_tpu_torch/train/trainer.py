@@ -13,8 +13,17 @@ The reference's behaviour, on one card:
   * ``ModelTrainer.train`` / ``.evaluate`` and their result dicts.
 
 Checkpoints are the port's torch format (``epoch<E>-val<L>.pt`` state
-dicts), which ``TextDetector(model_path=...)`` loads as they are. A
-``mesh`` (several cards) is not ported yet: ROADMAP queue 1 item 7.
+dicts), which ``TextDetector(model_path=...)`` loads as they are.
+
+``mesh`` trains data-parallel with one process per data-axis entry
+(``torch.distributed``; ``train-detector --mesh Dx1`` spawns them): every
+rank iterates the same shuffled global batches and takes its
+``local_batch_slice``; BatchNorm statistics and the losses are the whole
+batch's (``parallel.collectives.data_group``); the gradients are averaged
+over the ranks after backward, so AdamW takes the same step everywhere;
+evaluation's loss and confusion counts are global; rank 0 writes the
+checkpoints (plain state dicts). The model axis is not ported
+(``core.mesh.MODEL_AXIS_NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -25,17 +34,17 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import resolve_device, seeded_init_
+from ..core.mesh import (
+    DATA_AXIS, MODEL_AXIS, MODEL_AXIS_NOT_PORTED, local_batch_slice,
+)
+from ..parallel.collectives import average_gradients, data_group
 from .checkpoint import save_state_dict
 from .losses import db_loss
 
 logger = logging.getLogger(__name__)
-
-MESH_NOT_PORTED = (
-    "training over a device mesh is not ported yet (ROADMAP queue 1 item "
-    "7, multiple GPUs); train on one card"
-)
 
 
 class TextDetectionDataset:
@@ -115,43 +124,55 @@ def _nchw(images: torch.Tensor) -> torch.Tensor:
 
 
 def make_train_step(
-    model: torch.nn.Module, optimizer: torch.optim.Optimizer
+    model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """``step(images [B,H,W,3], targets) -> aux`` (0-d loss tensors on the
     device): one forward in train mode (BatchNorm on batch statistics,
     running statistics updated), the DB loss, backward and an AdamW
     update. The step's gradients stay in the parameters' ``.grad`` until
-    the next step clears them."""
+    the next step clears them. Under a data-parallel ``group`` the images
+    are this rank's slice, the statistics and the loss are the whole
+    batch's, and ``.grad`` holds the gradient averaged over the ranks."""
 
     def train_step(images: torch.Tensor, targets: Dict[str, torch.Tensor]):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        total, aux = db_loss(model(_nchw(images)), targets)
+        with data_group(group):
+            total, aux = db_loss(model(_nchw(images)), targets)
         total.backward()
+        if group is not None:
+            average_gradients(model.parameters(), group)
         optimizer.step()
         return {k: v.detach() for k, v in aux.items()}
 
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module):
+def make_eval_step(model: torch.nn.Module,
+                   group: Optional[dist.ProcessGroup] = None):
     """``step(images, targets, valid) -> aux`` with the loss weighted by
     ``valid`` and tp / fp / fn of the probability map at 0.5, masked so
-    that tail padding counts nothing."""
+    that tail padding counts nothing. Under a data-parallel ``group``,
+    the loss and the counts are the whole batch's."""
 
     @torch.no_grad()
     def eval_step(images, targets, valid):
         model.eval()
         out = model(_nchw(images))
-        _, aux = db_loss(out, targets, sample_weight=valid)
+        with data_group(group):
+            _, aux = db_loss(out, targets, sample_weight=valid)
         w = valid.to(torch.float32)[:, None, None]
         pred = (out["probability"][:, 0] > 0.5).to(torch.float32)
         tgt = targets["probability_map"]
-        aux.update({
-            "tp": (pred * tgt * w).sum(),
-            "fp": (pred * (1 - tgt) * w).sum(),
-            "fn": ((1 - pred) * tgt * w).sum(),
-        })
+        counts = torch.stack([
+            (pred * tgt * w).sum(),
+            (pred * (1 - tgt) * w).sum(),
+            ((1 - pred) * tgt * w).sum(),
+        ])
+        if group is not None:
+            dist.all_reduce(counts, group=group)
+        aux.update(zip(("tp", "fp", "fn"), counts))
         return aux
 
     return eval_step
@@ -164,10 +185,32 @@ class ModelTrainer:
 
     def __init__(self, config: Dict[str, Any], mesh: Optional[Any] = None,
                  device: str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
         self.config = dict(config)
+        self.mesh = mesh
         self.device = resolve_device(device)
+
+    def _data_parallel(self, batch_size: int):
+        """(group, (start, size) of this rank's rows): (None, whole batch)
+        without a mesh, or on a 1-entry mesh outside any group."""
+        if self.mesh is None:
+            return None, (0, batch_size)
+        n = self.mesh.shape[DATA_AXIS]
+        if batch_size % n:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"the mesh data axis ({n})")
+        if not dist.is_initialized():
+            if n == 1:
+                return None, (0, batch_size)
+            raise ValueError(
+                f"a {n}x1 mesh trains one process per data-axis entry: "
+                "join them with core.mesh.init_distributed, or run "
+                "train-detector --mesh")
+        if dist.get_world_size() != n:
+            raise ValueError(f"{dist.get_world_size()} ranks for a mesh "
+                             f"of {n} data-axis entries")
+        return dist.group.WORLD, local_batch_slice(batch_size, self.mesh)
 
     def _put(self, imgs: np.ndarray, targets: Dict[str, np.ndarray]):
         dev = self.device
@@ -188,6 +231,9 @@ class ModelTrainer:
         cfg = self.config
         try:
             batch_size = int(cfg.get("batch_size", 8))
+            group, (start, size) = self._data_parallel(batch_size)
+            rows = slice(start, start + size)
+            writer = group is None or dist.get_rank() == 0
             state = create_train_state(
                 model,
                 learning_rate=float(cfg.get("learning_rate", 1e-4)),
@@ -196,8 +242,8 @@ class ModelTrainer:
                 device=self.device,
             )
             optimizer = state["optimizer"]
-            train_step = make_train_step(model, optimizer)
-            eval_step = make_eval_step(model)
+            train_step = make_train_step(model, optimizer, group)
+            eval_step = make_eval_step(model, group)
 
             ckpt_dir = Path(cfg.get("checkpoint_dir", "./checkpoints"))
             ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -221,10 +267,12 @@ class ModelTrainer:
                 for imgs, targets in train_data.batches(
                     batch_size, shuffle=True, seed=epoch
                 ):
-                    aux = train_step(*self._put(imgs, targets))
+                    aux = train_step(*self._put(
+                        imgs[rows], {k: v[rows] for k, v in targets.items()}))
                     train_losses.append(float(aux["loss"]))
 
-                val = self._evaluate_epoch(eval_step, val_data, batch_size)
+                val = self._evaluate_epoch(eval_step, val_data, batch_size,
+                                           rows, group)
                 history.append(
                     {
                         "epoch": epoch,
@@ -246,15 +294,16 @@ class ModelTrainer:
                         plateau_count = 0
 
                 # top-k checkpoints by val_loss
+                # (rank 0 writes; every rank keeps the same list)
                 if len(saved) < top_k or val["val_loss"] < saved[-1][0]:
-                    path = save_state_dict(
-                        ckpt_dir / f"epoch{epoch}-val{val['val_loss']:.4f}.pt",
-                        model,
-                    )
-                    saved.append((val["val_loss"], path))
+                    path = ckpt_dir / f"epoch{epoch}-val{val['val_loss']:.4f}.pt"
+                    if writer:
+                        save_state_dict(path, model)
+                    saved.append((val["val_loss"], str(path)))
                     saved.sort(key=lambda t: t[0])
                     for _, stale in saved[top_k:]:
-                        Path(stale).unlink(missing_ok=True)
+                        if writer:
+                            Path(stale).unlink(missing_ok=True)
                     saved = saved[:top_k]
 
                 # early stopping
@@ -280,13 +329,19 @@ class ModelTrainer:
 
     # ------------------------------------------------------------------
     def _evaluate_epoch(
-        self, eval_step, data: TextDetectionDataset, batch_size: int
+        self, eval_step, data: TextDetectionDataset, batch_size: int,
+        rows: slice = slice(None), group=None,
     ) -> Dict[str, float]:
+        """Loss, precision, recall and F1 over ``data``; under ``group``
+        this rank feeds its ``rows`` of each batch, the sums are global,
+        and every rank takes rank 0's numbers (the same decisions
+        everywhere)."""
         losses, tp, fp, fn = [], 0.0, 0.0, 0.0
         for imgs, targets, valid in data.batches(batch_size, with_valid=True):
             aux = eval_step(
-                *self._put(imgs, targets),
-                torch.from_numpy(valid).to(self.device),
+                *self._put(imgs[rows], {k: v[rows] for k, v in
+                                        targets.items()}),
+                torch.from_numpy(valid[rows]).to(self.device),
             )
             # the running loss mean weighted by each batch's real samples
             losses.extend([float(aux["loss"])] * int(valid.sum()))
@@ -300,12 +355,18 @@ class ModelTrainer:
             if precision + recall > 0
             else 0.0
         )
-        return {
+        val = {
             "val_loss": float(np.mean(losses)) if losses else 0.0,
             "val_precision": precision,
             "val_recall": recall,
             "val_f1": f1,
         }
+        if group is not None:
+            t = torch.tensor(list(val.values()), dtype=torch.float64,
+                             device=self.device)
+            dist.broadcast(t, 0, group=group)
+            val = dict(zip(val, t.tolist()))
+        return val
 
     # ------------------------------------------------------------------
     def evaluate(
@@ -321,5 +382,7 @@ class ModelTrainer:
             model.load_state_dict(variables)
         model.to(self.device)
         batch_size = int(self.config.get("batch_size", 8))
-        return self._evaluate_epoch(make_eval_step(model), test_data,
-                                    batch_size)
+        group, (start, size) = self._data_parallel(batch_size)
+        return self._evaluate_epoch(make_eval_step(model, group), test_data,
+                                    batch_size, slice(start, start + size),
+                                    group)
