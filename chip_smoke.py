@@ -111,7 +111,20 @@ any error:
              against the one-process step (loss and gradient norm within
              the stated tolerances), ms/step and the gradient all-reduce's
              ms; with two or more cards also a mesh, the two-stage
-             pipeline and NCCL ranks over distinct cards. No rank is left.
+             pipeline and NCCL ranks over distinct cards. No rank is left;
+  hostapi    the rest of the reference's host API: a DBNet ``.pth`` in the
+             original app's layout (``tests/torch_app_layout.py``, seeded,
+             full widths) loaded by ``TextDetector`` on the card, its
+             backbone and head bit-equal to ``dbnet_from_app_state``, its
+             map against the same file on the CPU; ``save_model`` then
+             ``load_model`` of the trained detector under a name with no
+             ``.pt`` suffix (bit-equal), with the ms of ``load_model`` for
+             an orbax directory, the app ``.pth`` and the port's file;
+             ``extract_single_frame`` on the serve clip into
+             ``process_single_frame`` on the trained CRNN pipeline (HELLO /
+             WORLD / 123, both kernels counted); ``VideoResult`` rebuilt
+             from a ``process_video`` result; ``start_metrics_server``
+             serving the port's registry.
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -2746,8 +2759,172 @@ def run_parallel(torch, np, card, results, state, tmp):
     print("parallel phase: every spawned rank joined, no process group left")
 
 
+# the app-layout detector (seeded weights, bf16 on the card) against the
+# same file in float32 on the CPU, on the verify frame's probability map;
+# both on one x86 CPU, bf16 against float32 gave 0.0485 max, 0.0040 mean
+# (tests/torch_app_layout.py's seed 0)
+APP_PROB_MAX_TOL = 0.1
+APP_PROB_MEAN_TOL = 0.01
+# the trained detector against itself after save_model / load_model: the
+# same weights and kernels on the same card
+ROUND_TRIP_PROB_TOL = 1e-3
+HOSTAPI_FRAME = 3  # a frame of the serve clip's first half: the verify frame
+
+
+def median_load_ms(torch, fn, runs: int = 3) -> float:
+    """Median host ms of ``fn()`` (a load or a save) with the card
+    synchronised after it."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def hostapi_phase(torch, np, card, results, state):
+    """The rest of the reference's host API on the card: a DBNet ``.pth``
+    in the original app's layout, ``save_model`` / ``load_model``, random
+    access to a frame through ``extract_single_frame`` into
+    ``process_single_frame``, the result schemas of a ``process_video``
+    result, and ``start_metrics_server``. Its files live in a directory
+    removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtd_hostapi_") as tmp:
+        run_hostapi(torch, np, card, results, state, tmp)
+
+
+def run_hostapi(torch, np, card, results, state, tmp):
+    import asyncio
+    import os
+    import urllib.request
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_app_layout import write_app_dbnet
+    from vtd_tpu_torch.convert import dbnet_from_app_state
+    from vtd_tpu_torch.core import FrameResult, RecognizedRegion, VideoResult
+    from vtd_tpu_torch.obs import metrics
+    from vtd_tpu_torch.ops.cc_kernels import neighbor_min_sweeps
+    from vtd_tpu_torch.runtime.detector import TextDetector
+    from vtd_tpu_torch.video import VideoProcessor
+
+    frame = verify_frames(np)["frame_bgr"]
+
+    def prob(det):
+        with torch.inference_mode():
+            x = torch.from_numpy(frame[None]).to(det.device)
+            return det.probability(x).float().cpu()
+
+    # the app's layout: every backbone and head tensor on the card is the
+    # converter's, and the map agrees with the same file on the CPU
+    app = os.path.join(tmp, "dbnet_app.pth")
+    want = dbnet_from_app_state(write_app_dbnet(app, seed=0))
+    det = TextDetector(model_path=app, device="cuda")
+    loaded = det.load_model(app)
+    model_sd = det.model.state_dict()
+    for k, v in want.items():
+        if loaded[k].device.type != "cuda" or not torch.equal(
+                loaded[k].cpu(), v):
+            raise AssertionError(f"app layout: load_model's {k} differs")
+        if not torch.equal(model_sd[k].cpu(), v.to(model_sd[k].dtype)):
+            raise AssertionError(f"app layout: the model's {k} differs")
+    p_card, p_cpu = prob(det), prob(TextDetector(model_path=app,
+                                                 device="cpu"))
+    err = (p_card - p_cpu).abs()
+    if not (err.max() <= APP_PROB_MAX_TOL and err.mean() <= APP_PROB_MEAN_TOL):
+        raise AssertionError(
+            f"app layout: card (bf16) against CPU (float32) map off by "
+            f"{float(err.max())} max, {float(err.mean())} mean")
+    print(f"hostapi app layout: {len(want)} backbone and head tensors on "
+          f"the card bit-equal to dbnet_from_app_state (the model's at "
+          f"{det.dtype}); verify-frame map card bf16 against CPU float32: "
+          f"{float(err.max()):.5f} max (allowed {APP_PROB_MAX_TOL}), "
+          f"{float(err.mean()):.5f} mean (allowed {APP_PROB_MEAN_TOL})")
+
+    # save_model / load_model round trip under a name with no torch suffix
+    trained = TextDetector(model_path=CHECKPOINTS["detector"], device="cuda")
+    path = os.path.join(tmp, "detector_weights")
+    ms_save = median_load_ms(torch, lambda: trained.save_model(path))
+    back = TextDetector(model_path=path, device="cuda")
+    for k, v in trained.model.state_dict().items():
+        if not torch.equal(back.model.state_dict()[k], v):
+            raise AssertionError(f"round trip: {k} differs")
+    rt = float((prob(back) - prob(trained)).abs().max())
+    if rt > ROUND_TRIP_PROB_TOL:
+        raise AssertionError(f"round trip: maps differ by {rt}")
+    ms = {name: median_load_ms(torch, lambda p=p: trained.load_model(p))
+          for name, p in (("orbax directory", CHECKPOINTS["detector"]),
+                          ("app .pth", app), ("port torch file", path))}
+    print(f"hostapi save_model -> load_model (no .pt suffix): state dict "
+          f"bit-equal, maps within {rt} (allowed {ROUND_TRIP_PROB_TOL}); "
+          f"load_model ms (median of 3): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; save_model {ms_save:.1f} ms ({card})")
+
+    # random access to one frame, read by the trained CRNN pipeline
+    clip = os.path.join(tmp, "clip.mp4")
+    write_serve_clip(np, clip)
+    one = VideoProcessor().extract_single_frame(clip, HOSTAPI_FRAME)
+    if one is None or one.shape != (640, 640, 3):
+        raise AssertionError(f"extract_single_frame gave {one!r:.80}")
+    if VideoProcessor().extract_single_frame(clip, 10_000) is not None:
+        raise AssertionError("extract_single_frame past the end")
+    pipe = trained_pipeline(state, "crnn")
+    reset_counts()
+    single = pipe.process_single_frame(one)
+    calls, cuda = record_path(results, "hostapi")
+    if "error" in single:
+        raise AssertionError(f"process_single_frame: {single['error']}")
+    texts = sorted(d["text"] for d in single["detections"])
+    if texts != sorted(TRUTH) or calls < 1 or neighbor_min_sweeps.launches:
+        raise AssertionError(
+            f"single frame read {texts}; segmented_cc_round {calls} calls, "
+            f"neighbor_min_sweeps {neighbor_min_sweeps.launches}")
+    print(f"hostapi extract_single_frame({HOSTAPI_FRAME}) -> "
+          f"process_single_frame reads {texts}; segmented_cc_round {calls} "
+          f"calls ({cuda} CUDA launches), neighbor_min_sweeps 0")
+
+    # the schemas rebuild process_video's result dict field for field
+    res = asyncio.run(pipe.process_video(clip))
+    if res["status"] != "success":
+        raise AssertionError(f"process_video: {res}")
+    typed = VideoResult(
+        status=res["status"],
+        results=[FrameResult(f["frame_number"], f["timestamp"],
+                             [RecognizedRegion(**d) for d in f["detections"]])
+                 for f in res["results"]],
+        summary=res["summary"], video_info=res["video_info"])
+    if typed.to_dict() != res:
+        raise AssertionError("VideoResult.to_dict() differs from the "
+                             "pipeline's result")
+    n_regions = sum(len(f["detections"]) for f in res["results"])
+    print(f"hostapi VideoResult(...).to_dict() equals process_video's "
+          f"result: {len(res['results'])} frames, {n_regions} regions")
+
+    # the worker-side metrics server serves the port's registry
+    server = metrics.start_metrics_server(0, "127.0.0.1")
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/metrics"
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(url, timeout=30) as resp:
+            body = resp.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+    frames = metric_value(
+        body, 'model_batch_size_sum{model_type="DBNet-CRNN"}')
+    if frames <= 0:
+        raise AssertionError(f"/metrics counts {frames} CRNN frames")
+    print(f"hostapi start_metrics_server: GET /metrics {len(body)} bytes, "
+          f"the pipeline's CRNN frames {frames:g}")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
-          "engine", "beam", "serve", "fleet", "train", "parallel")
+          "engine", "beam", "serve", "fleet", "train", "parallel",
+          "hostapi")
 
 
 def main(argv=None) -> int:
@@ -2805,6 +2982,7 @@ def main(argv=None) -> int:
         "fleet": lambda: fleet_phase(torch, np, card, results, state),
         "train": lambda: train_phase(torch, np, card),
         "parallel": lambda: parallel_phase(torch, np, card, results, state),
+        "hostapi": lambda: hostapi_phase(torch, np, card, results, state),
     }
     for name in PHASES:
         if name in phases:

@@ -13,7 +13,10 @@ any float dtype), and return the port's ``state_dict`` (float32 tensors):
   * the CRNN LSTM, already in torch layout and gate order, copies through.
 
 ``upsample_from_conv_transpose`` maps a reference torch
-``ConvTranspose2d(k=2, s=2)`` onto ``_Upsample2x``.
+``ConvTranspose2d(k=2, s=2)`` onto ``_Upsample2x``;
+``dbnet_from_app_state`` takes a DBNet ``.pth`` of the original app (a
+torchvision backbone in an ``nn.Sequential``, ``head.*_head``
+sequentials) to the port's backbone and head.
 
 ``trocr_from_jax`` takes the ``{"params"}`` tree of ``vtd_tpu``'s TrOCR
 (same submodule names as the port's: a rename, Dense transposes, the
@@ -25,7 +28,7 @@ Plain numpy and torch: reading a JAX checkpoint is the caller's business.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -85,6 +88,93 @@ def upsample_from_conv_transpose(
         f"{prefix}.conv.weight": _f32(conv_w),
         f"{prefix}.conv.bias": _f32(conv_b),
     }
+
+
+# the app's backbone: nn.Sequential(*resnet50.children()[:-2])
+_APP_BACKBONE = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+                 "6": "layer3", "7": "layer4"}
+# the app's head branch: 0 conv, 1 bn, 2 relu, 3 convT, 4 bn, 5 relu,
+# 6 convT, 7 sigmoid
+_APP_HEAD_BN = {"1": "bn1", "4": "bn2"}
+_APP_HEAD_UP = {"3": "up1", "6": "up2"}
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def _app_resnet50_keys() -> List[str]:
+    """The app's backbone keys that the reference's ``import_resnet50``
+    reads (BatchNorm update counts aside), in the app's names."""
+    def conv_bn(conv, bn):
+        return [f"{conv}.weight", *(f"{bn}.{x}" for x in _BN_LEAVES)]
+
+    keys = conv_bn("backbone.0", "backbone.1")
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        for block in range(blocks):
+            pre = f"backbone.{stage + 4}.{block}"
+            for i in (1, 2, 3):
+                keys += conv_bn(f"{pre}.conv{i}", f"{pre}.bn{i}")
+            if block == 0:
+                keys += conv_bn(f"{pre}.downsample.0", f"{pre}.downsample.1")
+    return keys
+
+
+def _tensor(x) -> torch.Tensor:
+    """float leaves -> float32; integer ones (``num_batches_tracked``)
+    keep their type."""
+    a = np.asarray(x)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.astype(np.int64).copy())
+    return _f32(a)
+
+
+def dbnet_from_app_state(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The original app's DBNet state dict (CPU tensors or numpy) ->
+    the port's ``backbone.*`` and ``head.*`` entries, as
+    ``vtd_tpu/models/import_torch.py:import_dbnet_pth`` reads it:
+    ``backbone.{0,1,4-7}`` are torchvision's conv1, bn1 and layer1-4;
+    ``head.{probability,threshold}_head.{0,1,3,4,6}`` the branch's conv,
+    BatchNorms and ConvTranspose2d upsamplers. The bias of the head's
+    first conv is dropped (the port's conv has none). The app's FPN is
+    not read: it feeds C5 to every lateral, and its shapes do not fit a
+    working FPN.
+
+    As in the reference, a file with any backbone key must hold all of
+    ResNet50's, and a head branch it holds must be whole: a missing key
+    raises KeyError. The caller fills ``fpn.*``, BatchNorm update counts
+    the file lacks, and a backbone or head branch that is absent
+    altogether, from an initialised model."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        parts = key.split(".")
+        if parts[0] == "backbone" and parts[1] in _APP_BACKBONE:
+            name = ".".join(["backbone", _APP_BACKBONE[parts[1]], *parts[2:]])
+            out[name] = _tensor(value)
+    if out:
+        missing = [k for k in _app_resnet50_keys() if k not in sd]
+        if missing:
+            raise KeyError(f"{len(missing)} ResNet50 keys missing from the "
+                           f"checkpoint's backbone, first {missing[0]!r}")
+    for branch in ("probability", "threshold"):
+        app, pre = f"head.{branch}_head", f"head.{branch}"
+        if f"{app}.0.weight" not in sd:
+            continue
+        out[f"{pre}.conv.weight"] = _f32(sd[f"{app}.0.weight"])
+        for idx, bn in _APP_HEAD_BN.items():
+            for leaf in _BN_LEAVES:
+                out[f"{pre}.{bn}.{leaf}"] = _tensor(sd[f"{app}.{idx}.{leaf}"])
+            count = f"{app}.{idx}.num_batches_tracked"
+            if count in sd:
+                out[f"{pre}.{bn}.num_batches_tracked"] = _tensor(sd[count])
+        for idx, up in _APP_HEAD_UP.items():
+            out.update(upsample_from_conv_transpose(
+                np.asarray(sd[f"{app}.{idx}.weight"]),
+                np.asarray(sd[f"{app}.{idx}.bias"]), f"{pre}.{up}"))
+    return out
+
+
+def is_app_dbnet_state(sd: Mapping[str, Any]) -> bool:
+    """Whether ``sd`` is keyed as the original app's DBNet."""
+    return any(k.startswith(("backbone.0.", "head.probability_head.",
+                             "head.threshold_head.")) for k in sd)
 
 
 def dbnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

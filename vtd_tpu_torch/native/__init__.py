@@ -5,14 +5,15 @@
 -pthread`` at first use into ``vtd_tpu_torch/.build/`` (listed in
 ``.gitignore``), named after a hash of the source and the flags, as
 ``_build.py`` does for the CUDA kernels. There is no fallback: a missing
-``g++`` or a failed build raises. ``ctc_beam_decode_plain`` is the
-plain Python version of the same search, which the tests hold the C++
-against.
+``g++`` or a failed build raises; ``native_available`` says whether the
+library builds and loads. ``ctc_beam_decode_plain`` is the plain Python
+version of the same search, which the tests hold the C++ against.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import math
 import os
 import shutil
@@ -27,6 +28,7 @@ SRC = Path(__file__).resolve().parent / "ctc_beam.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build"
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
+logger = logging.getLogger(__name__)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -80,6 +82,17 @@ def _get_lib() -> ctypes.CDLL:
             lib.ctc_beam_decode_batch.restype = None
             _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the C++ beam library builds and loads here; never raises
+    (False when g++ is missing or the build or the load fails)."""
+    try:
+        _get_lib()
+    except Exception as e:  # a probe: any failure means "not available"
+        logger.warning("native CTC beam unavailable: %s", e)
+        return False
+    return True
 
 
 def ctc_beam_decode(

@@ -2,7 +2,8 @@
 
 The same series names, labels and default histogram buckets as the
 reference, kept in the port's own :class:`Registry` and rendered in the
-Prometheus text exposition format 0.0.4 by :func:`generate_latest`. The
+Prometheus text exposition format 0.0.4 by :func:`generate_latest`, and
+served on a port of its own by :func:`start_metrics_server`. The
 port does not use ``prometheus_client``: its global registry hands an
 existing collector back by name (``vtd_tpu/obs/metrics.py:29-35``), so
 in a process that imports both packages the port's counters would be the
@@ -15,6 +16,7 @@ import logging
 import math
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence, Tuple
 
 logger = logging.getLogger(__name__)
@@ -369,3 +371,39 @@ class MetricsCollector:
 
 
 metrics_collector = MetricsCollector()
+
+
+CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    def do_GET(self):  # noqa: N802 — http.server's name
+        body = generate_latest(REGISTRY)
+        self.send_response(200)
+        self.send_header("Content-Type", CONTENT_TYPE_LATEST)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):  # no access log on stderr
+        pass
+
+
+def start_metrics_server(
+    port: int = 9091, addr: str = "0.0.0.0"
+) -> Optional[ThreadingHTTPServer]:
+    """Serve the port's registry in format 0.0.4 on every GET path of
+    ``addr:port`` from a daemon thread: the worker side's standalone
+    metrics server. A port that cannot be bound (taken, say) logs a
+    warning and returns None, as the reference does; otherwise returns
+    the server (``shutdown()`` stops it)."""
+    try:
+        server = ThreadingHTTPServer((addr, port), _MetricsHandler)
+    except OSError as e:
+        logger.warning("metrics server not started: %s", e)
+        return None
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="metrics-server").start()
+    logger.info("Metrics server on :%d", server.server_address[1])
+    return server

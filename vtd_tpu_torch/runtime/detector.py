@@ -18,7 +18,7 @@ from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.dbnet import DBNet
 from ..ops.db_postprocess import db_postprocess, extract_detections
 from ..ops.preprocess import preprocess_frames, yuv420_to_bgr
-from ..train.checkpoint import load_weights
+from ..train.checkpoint import load_weights, save_state_dict
 
 logger = logging.getLogger(__name__)
 
@@ -26,11 +26,8 @@ logger = logging.getLogger(__name__)
 class TextDetector:
     """DBNet detector with a batched device path.
 
-    ``model_path``: what the reference's loader takes (an orbax
-    checkpoint directory, a directory or file holding a pickled
-    ``variables.pkl``, both converted with ``convert.dbnet_from_jax``),
-    or a torch-format ``.pth``/``.pt`` state dict of the port's
-    ``DBNet``; without one, weights are drawn from ``seed``.
+    ``model_path``: whatever :meth:`load_model` takes; without one,
+    weights are drawn from ``seed``.
     """
 
     def __init__(
@@ -52,14 +49,48 @@ class TextDetector:
             raise ValueError(f"unknown transfer_format {transfer_format!r}")
         self.transfer_format = transfer_format
         self.dtype = compute_dtype(self.device, dtype)
+        self.seed = seed
         model = DBNet()
-        if model_path:
-            from ..convert import dbnet_from_jax
-
-            model.load_state_dict(load_weights(model_path, dbnet_from_jax))
-        else:
+        if not model_path:
             seeded_init_(model, seed)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        if model_path:
+            self.model.load_state_dict(self.load_model(model_path))
+
+    def load_model(self, model_path: str) -> Dict[str, torch.Tensor]:
+        """The state dict of a checkpoint, on the detector's device, in
+        the stored types. Takes what the reference's loader takes:
+
+          * a torch file (a ``.pth``/``.pt`` name or a zip archive by its
+            content, such as :meth:`save_model` writes under any name),
+            keyed as the port's ``DBNet`` or as the original app's DBNet
+            (``{'model_state_dict': ...}``; carried across by
+            ``convert.dbnet_from_app_state``, which raises on a partial
+            backbone or head branch; the FPN, and a part the file lacks
+            altogether, come from the port's init drawn from ``seed``);
+          * an orbax checkpoint directory, or a directory or file holding
+            a pickled ``variables.pkl``, converted with
+            ``convert.dbnet_from_jax``.
+        """
+        from ..convert import (
+            dbnet_from_app_state, dbnet_from_jax, is_app_dbnet_state,
+        )
+
+        try:
+            sd = load_weights(model_path, dbnet_from_jax)
+            if is_app_dbnet_state(sd):
+                sd = {**seeded_init_(DBNet(), self.seed).state_dict(),
+                      **dbnet_from_app_state(sd)}
+        except Exception as e:
+            logger.error("Failed to load model: %s", e)
+            raise
+        return {k: v.to(self.device) for k, v in sd.items()}
+
+    def save_model(self, model_path: str) -> str:
+        """Write the model's state dict (its compute dtype, on the CPU) to
+        ``model_path``, any name, in the port's torch format; returns the
+        path."""
+        return save_state_dict(model_path, self.model)
 
     def replica(self, device) -> "TextDetector":
         """This detector with its own copy of the model on ``device`` (the

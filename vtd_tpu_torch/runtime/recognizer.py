@@ -74,13 +74,27 @@ class TextRecognizer:
         self.transformer = None
         self.device = resolve_device(device)
         crnn = CRNN(dtype=compute_dtype(self.device, dtype))
-        if model_path:
-            from ..convert import crnn_from_jax
-
-            crnn.load_state_dict(load_weights(model_path, crnn_from_jax))
-        else:
+        if not model_path:
             seeded_init_(crnn, seed)
         self.crnn = crnn.to(self.device).eval()
+        if model_path:
+            self.crnn.load_state_dict(self.load_model(model_path))
+
+    def load_model(self, model_path: str) -> Dict[str, torch.Tensor]:
+        """The CRNN state dict of a checkpoint, on the recognizer's
+        device, in the stored types: a torch file (a ``.pth``/``.pt``
+        name or a zip archive by its content; the original app's CRNN
+        keys are the port's), an orbax checkpoint directory, or a
+        directory or file holding a pickled ``variables.pkl`` (both
+        converted with ``convert.crnn_from_jax``)."""
+        from ..convert import crnn_from_jax
+
+        try:
+            sd = load_weights(model_path, crnn_from_jax)
+        except Exception as e:
+            logger.error("Failed to load CRNN model: %s", e)
+            raise
+        return {k: v.to(self.device) for k, v in sd.items()}
 
     def replica(self, device) -> "TextRecognizer":
         """This recognizer with its own copy of the model on ``device``

@@ -37,6 +37,15 @@ siblings (the failure mode that pushed Celery onto billiard instead
 of raw kills on a shared mp.Queue). Drains are serialized per child.
 Revocation flags are shared through a Manager dict the child polls in
 ``is_revoked``.
+
+The parent counts the payloads it sends each child and sends none past
+``max_tasks_per_child``: a child reads no more before it recycles. A
+task held by a child that dies before its "started" event goes back on
+the pending queue, once: a second child that dies the same way (a task
+module that does not import, a card that does not start) fails it as
+"worker lost", as does the death of a child that started it. The
+reference dispatches to a child between its last "done" and its
+"recycled", and loses that task.
 """
 from __future__ import annotations
 
@@ -145,6 +154,7 @@ class _Child:
     # paths may all try to read this child's events — two concurrent
     # readers on one Connection can interleave recv()s and block.
     drain_lock: Any
+    sent: int = 0  # payloads put into ``inbox``
 
 
 class ProcessWorkerPool:
@@ -171,6 +181,7 @@ class ProcessWorkerPool:
         self._children: Dict[int, _Child] = {}
         self._assigned: Dict[int, str] = {}  # pid -> in-flight task id
         self._started_at: Dict[str, float] = {}  # task id -> start time
+        self._requeued: set = set()  # ids given back after a lost child
         self._lock = threading.Lock()
         self._stop = threading.Event()
         for _ in range(concurrency):
@@ -242,42 +253,51 @@ class ProcessWorkerPool:
 
     # ------------------------------------------------------------------
     def _dispatch_loop(self):
-        """Assign each pending record to a specific idle child, recording
-        the assignment BEFORE the payload enters the child's inbox —
-        worker-lost attribution never depends on the child flushing an
-        event."""
+        """Hand each pending record to :meth:`_assign`, waiting while no
+        child has room for it."""
         while not self._stop.is_set():
             try:
                 rec = self._pending.get(timeout=0.2)
             except _queue.Empty:
                 continue
-            if rec.cancel_event.is_set():  # revoked while queued
-                continue
-            while not self._stop.is_set():
-                with self._lock:
-                    idle = next(
-                        (
-                            pid
-                            for pid, c in self._children.items()
-                            if c.proc.is_alive() and pid not in self._assigned
-                        ),
-                        None,
-                    )
-                    if idle is not None:
-                        self._assigned[idle] = rec.id
-                        child = self._children[idle]
-                if idle is not None:
-                    child.inbox.put(
-                        {
-                            "id": rec.id,
-                            "name": rec.name,
-                            "args": list(rec.args),
-                            "kwargs": rec.kwargs,
-                            "queue": rec.queue,
-                        }
-                    )
-                    break
+            while not self._stop.is_set() and not self._assign(rec):
                 time.sleep(0.05)
+
+    def _assign(self, rec) -> bool:
+        """Put ``rec`` into the inbox of a live child that holds no task
+        and has been sent fewer than ``max_tasks_per_child`` payloads,
+        recording the assignment BEFORE the payload enters the inbox —
+        worker-lost attribution never depends on the child flushing an
+        event. A child reads no payload past its limit (it recycles), so
+        none is sent to it. False when no child has room; True when
+        ``rec`` went out or was revoked while queued."""
+        if rec.cancel_event.is_set():
+            return True
+        with self._lock:
+            idle = next(
+                (
+                    pid
+                    for pid, c in self._children.items()
+                    if c.proc.is_alive() and pid not in self._assigned
+                    and (self._max_tasks <= 0 or c.sent < self._max_tasks)
+                ),
+                None,
+            )
+            if idle is None:
+                return False
+            self._assigned[idle] = rec.id
+            child = self._children[idle]
+            child.sent += 1
+        child.inbox.put(
+            {
+                "id": rec.id,
+                "name": rec.name,
+                "args": list(rec.args),
+                "kwargs": rec.kwargs,
+                "queue": rec.queue,
+            }
+        )
+        return True
 
     def _finish(self, rec, state, result, tb):
         q = self._backend
@@ -289,6 +309,7 @@ class ProcessWorkerPool:
                "REVOKED": "revoked"}[state]
         q._stats[key] += 1
         self._started_at.pop(rec.id, None)
+        self._requeued.discard(rec.id)
         self.revoked.pop(rec.id, None)
         if state == "FAILURE":
             for hook in q.on_failure:
@@ -358,8 +379,12 @@ class ProcessWorkerPool:
             self._respawn(pid)
 
     def _respawn(self, pid: int):
+        """Replace child ``pid``, which recycled or was killed. It holds
+        no task by then: a recycling child was sent no payload past its
+        last "done", and a kill releases its task first."""
         with self._lock:
             c = self._children.pop(pid, None)
+            self._assigned.pop(pid, None)
         if c is None:
             return  # another path (monitor/kill) already handled this pid
         _reap(c.proc, grace=5)
@@ -404,35 +429,44 @@ class ProcessWorkerPool:
                         tid, final_state="FAILURE",
                         reason="hard time limit exceeded",
                     )
-            # worker-lost detection: a child died while holding a task
-            with self._lock:
-                dead = [
-                    (pid, c)
-                    for pid, c in self._children.items()
-                    if not c.proc.is_alive()
-                ]
-            for pid, c in dead:
-                # Deliver any events flushed before death ("done" etc.)
-                # so a completed task isn't misreported as worker-lost.
-                self._drain_channel(c)
-                with self._lock:
-                    if pid not in self._children:
-                        continue  # already handled by recycle/kill paths
-                    tid = self._assigned.pop(pid, None)
-                    self._children.pop(pid, None)
-                if tid:
-                    rec = q.records.get(tid)
-                    if rec is not None and rec.state not in (
-                        "SUCCESS", "FAILURE", "REVOKED"
-                    ):
-                        self._finish(
-                            rec, "FAILURE",
-                            f"worker lost (pid {pid} exit "
-                            f"{c.proc.exitcode})", "",
-                        )
-                if not self._stop.is_set():
-                    self._spawn_child()
+            self._reap_dead()
             time.sleep(0.2)
+
+    def _reap_dead(self):
+        """Worker-lost detection: release every dead child and spawn its
+        replacement. A task the child had started is marked FAILURE
+        ("worker lost"); one it never started goes back on ``_pending``
+        the first time, and is marked FAILURE the second."""
+        q = self._backend
+        with self._lock:
+            dead = [
+                (pid, c)
+                for pid, c in self._children.items()
+                if not c.proc.is_alive()
+            ]
+        for pid, c in dead:
+            # Deliver any events flushed before death ("done" etc.)
+            # so a completed task isn't misreported as worker-lost.
+            self._drain_channel(c)
+            with self._lock:
+                if self._children.pop(pid, None) is None:
+                    continue  # already handled by recycle/kill paths
+                tid = self._assigned.pop(pid, None)
+            rec = q.records.get(tid) if tid else None
+            if rec is not None and rec.state not in (
+                "SUCCESS", "FAILURE", "REVOKED"
+            ):
+                if tid not in self._started_at and tid not in self._requeued:
+                    self._requeued.add(tid)
+                    self._pending.put(rec)
+                else:
+                    self._finish(
+                        rec, "FAILURE",
+                        f"worker lost (pid {pid} exit "
+                        f"{c.proc.exitcode})", "",
+                    )
+            if not self._stop.is_set():
+                self._spawn_child()
 
 
 def _reap(proc, grace: float) -> None:

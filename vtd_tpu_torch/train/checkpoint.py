@@ -147,14 +147,26 @@ def load_state_dict(path: str | Path) -> dict:
     return sd.get("model_state_dict", sd)
 
 
+def is_torch_file(path: str | Path) -> bool:
+    """A ``.pth``/``.pt`` name, or a file that opens as a zip archive
+    (what ``torch.save`` writes, whatever the name)."""
+    p = Path(path)
+    if p.suffix in (".pth", ".pt"):
+        return True
+    if not p.is_file():
+        return False
+    with open(p, "rb") as fh:
+        return fh.read(4) == b"PK\x03\x04"
+
+
 def load_weights(
     path: str | Path, from_jax: Callable[..., Dict[str, torch.Tensor]], *args
 ) -> Dict[str, torch.Tensor]:
     """A model's state dict from any checkpoint the reference's loaders
-    take: a torch ``.pth``/``.pt`` file, or the JAX package's variables
-    (an orbax directory, a directory or file holding a pickled
+    take: a torch file (:func:`is_torch_file`), or the JAX package's
+    variables (an orbax directory, a directory or file holding a pickled
     ``variables.pkl``) carried across by ``from_jax``."""
-    if Path(path).suffix in (".pth", ".pt"):
+    if is_torch_file(path):
         return load_state_dict(path)
     return from_jax(restore_variables(path), *args)
 

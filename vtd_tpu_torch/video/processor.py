@@ -1,5 +1,7 @@
-"""Host-side video decode: the port's copy of the cv2 decode path of
-``vtd_tpu/video/processor.py:VideoProcessor``.
+"""Host-side video decode and image helpers: the port's copy of the cv2
+decode path of ``vtd_tpu/video/processor.py:VideoProcessor``, and of its
+``letterbox_geometry``, ``ImageProcessor`` and ``AnnotationProcessor``
+(host numpy and cv2, as in the reference).
 
 ``extract_frame_batches`` yields fixed-size uint8 frame batches (tail
 padded by repeating the last frame, ``valid`` marking real slots),
@@ -69,6 +71,21 @@ class VideoProcessor:
         """Yield (frame, extracted_index, timestamp): every
         ``max(1, int(src_fps / target_fps))``-th decoded frame."""
         yield from self._segment_candidates(video_path, target_fps)
+
+    def extract_single_frame(
+        self, video_path: str, frame_number: int
+    ) -> Optional[np.ndarray]:
+        """Random access to one frame; None on any failure."""
+        try:
+            import cv2
+
+            with _capture(video_path) as cap:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, frame_number)
+                ok, frame = cap.read()
+            return frame if ok else None
+        except Exception as e:
+            logger.error("Single frame extraction failed: %s", e)
+            return None
 
     def _segment_candidates(
         self,
@@ -330,3 +347,127 @@ class VideoProcessor:
                     q.get_nowait()
                 except queue.Empty:
                     break
+
+
+def letterbox_geometry(
+    height: int, width: int, target: int
+) -> Tuple[float, int, int, int, int]:
+    """(scale, new_w, new_h, x_offset, y_offset) of an aspect-preserving
+    fit of (height, width) into a target square, centred."""
+    scale = target / max(height, width)
+    nw, nh = int(width * scale), int(height * scale)
+    return scale, nw, nh, (target - nw) // 2, (target - nh) // 2
+
+
+class ImageProcessor:
+    """Host image helpers: letterbox to a square, CLAHE text enhancement,
+    padded crop, /255 normalisation. The video paths do this work on the
+    device (``ops/preprocess.py``, ``ops/crop.py``)."""
+
+    @staticmethod
+    def resize_with_aspect_ratio(
+        image: np.ndarray, target_size: int = 640
+    ) -> Tuple[np.ndarray, float]:
+        """INTER_AREA resize onto the centre of a black square; returns
+        (canvas, scale)."""
+        import cv2
+
+        scale, nw, nh, x0, y0 = letterbox_geometry(
+            *image.shape[:2], target_size)
+        canvas = np.zeros((target_size, target_size, 3), np.uint8)
+        canvas[y0:y0 + nh, x0:x0 + nw] = cv2.resize(
+            image, (nw, nh), interpolation=cv2.INTER_AREA
+        )
+        return canvas, scale
+
+    @staticmethod
+    def enhance_text_regions(image: np.ndarray) -> np.ndarray:
+        """CLAHE (clip 3.0, 8x8 tiles) and a 3x3 median on the luma; a
+        colour input gets the enhanced luma on all its channels. The
+        input comes back unchanged on failure."""
+        try:
+            import cv2
+
+            luma = image if image.ndim == 2 else cv2.cvtColor(
+                image, cv2.COLOR_BGR2GRAY
+            )
+            clahe = cv2.createCLAHE(clipLimit=3.0, tileGridSize=(8, 8))
+            cleaned = cv2.medianBlur(clahe.apply(luma), 3)
+            if image.ndim == 2:
+                return cleaned
+            return np.repeat(cleaned[..., None], image.shape[2], axis=2)
+        except Exception as e:
+            logger.error("Image enhancement failed: %s", e)
+            return image
+
+    @staticmethod
+    def crop_text_region(
+        image: np.ndarray, bbox: List[int], padding: int = 5
+    ) -> np.ndarray:
+        """The bbox grown by ``padding`` px, clamped to the frame; the
+        input comes back unchanged on failure."""
+        try:
+            grow = np.asarray([-padding, -padding, padding, padding])
+            limit = np.asarray(image.shape[:2][::-1] * 2)  # (w, h, w, h)
+            x1, y1, x2, y2 = np.clip(np.asarray(bbox) + grow, 0, limit)
+            return image[y1:y2, x1:x2]
+        except Exception as e:
+            logger.error("Text region cropping failed: %s", e)
+            return image
+
+    @staticmethod
+    def normalize_image(image: np.ndarray) -> np.ndarray:
+        return np.multiply(image, np.float32(1 / 255.0), dtype=np.float32)
+
+    @staticmethod
+    def denormalize_image(image: np.ndarray) -> np.ndarray:
+        return np.asarray(image * 255.0, dtype=np.uint8)
+
+
+class AnnotationProcessor:
+    """DBNet training labels on the host: the probability map is 1 inside
+    each box (one inside-box test over all boxes at once); the threshold
+    map fills each region's contour shrunk about its centroid by
+    ``shrink_ratio``. ``train/labels.py`` makes the same maps on the
+    device."""
+
+    @staticmethod
+    def create_probability_map(
+        image_shape: Tuple[int, int], bboxes: List[List[int]]
+    ) -> np.ndarray:
+        height, width = image_shape
+        if not len(bboxes):
+            return np.zeros((height, width), np.float32)
+        b = np.asarray(bboxes, np.int64).reshape(-1, 4)[:, :, None, None]
+        ys, xs = np.ogrid[:height, :width]
+        inside = (
+            (xs >= b[:, 0]) & (xs < b[:, 2]) & (ys >= b[:, 1]) & (ys < b[:, 3])
+        )
+        return inside.any(axis=0).astype(np.float32)
+
+    @staticmethod
+    def create_threshold_map(
+        prob_map: np.ndarray, shrink_ratio: float = 0.4
+    ) -> np.ndarray:
+        """Each foreground region's outer contour (``cv2.findContours``)
+        shrunk about its centroid and filled."""
+        import cv2
+
+        out = np.zeros_like(prob_map)
+        contours, _ = cv2.findContours(
+            np.asarray(prob_map * 255, np.uint8),
+            cv2.RETR_EXTERNAL,
+            cv2.CHAIN_APPROX_SIMPLE,
+        )
+        for c in contours:
+            shrunk = AnnotationProcessor._shrink_polygon(
+                c.reshape(-1, 2), shrink_ratio)
+            cv2.fillPoly(out, [shrunk.astype(np.int32)], 1.0)
+        return out
+
+    @staticmethod
+    def _shrink_polygon(polygon: np.ndarray, ratio: float) -> np.ndarray:
+        """Affine contraction of a polygon about its centroid."""
+        pts = np.asarray(polygon, np.float64)
+        centroid = pts.mean(axis=0, keepdims=True)
+        return centroid + (pts - centroid) * (1.0 - ratio)
