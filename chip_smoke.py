@@ -124,7 +124,26 @@ any error:
              ``process_single_frame`` on the trained CRNN pipeline (HELLO /
              WORLD / 123, both kernels counted); ``VideoResult`` rebuilt
              from a ``process_video`` result; ``start_metrics_server``
-             serving the port's registry.
+             serving the port's registry;
+  tp         the mesh's model axis, on the trained checkpoints at config
+             3's settings: the CRNN pipeline on a 1x2 mesh ``[cuda:0,
+             cuda:0]`` and on a 2x2 mesh of four ``cuda:0`` entries (each
+             row's DBNet and CRNN split over its two entries: 38 and 13
+             split tensors), each over the same pipelined batches as the
+             fused path and equal to it (HELLO / WORLD / 123, boxes at IoU
+             >= 0.95), frames/s beside the fused path,
+             ``segmented_cc_round`` counted on each row's lead; the
+             default TrOCRConfig (seeded, bf16, 195 split tensors) on a
+             1x2 row against the unsplit recogniser on one 16-crop chunk
+             (tokens equal, encoder output within TP_ENC_RTOL); one DBNet
+             step (640x640, batch 8, float32) on a 1x2 row against the
+             one-process step within the data-parallel step's tolerances
+             and ms/step of both with TF32 convolutions; ``train-detector
+             --mesh 1x2`` in this process and its checkpoint read by an
+             unsplit ``TextDetector``; with two or more cards also the
+             pipeline and the DBNet step on a row over two cards, with
+             four ``train-detector --mesh 2x2`` as two NCCL ranks, each
+             on a row of two cards.
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -1425,7 +1444,9 @@ def report_steps(torch, np, card, name, batch, ms, losses, flops, kind,
 
 
 def grad_norm(torch, model) -> float:
-    return float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+    """The norm of every gradient together (a split model's shards may lie
+    on several cards)."""
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum().cpu()
                                 for p in model.parameters()
                                 if p.grad is not None)))
 
@@ -2494,10 +2515,10 @@ def dp_inputs(torch, rows=slice(None)):
             {k: torch.from_numpy(v[rows]).cuda() for k, v in tgts.items()})
 
 
-def dp_first_step(torch, x, t, group, tf32: bool):
-    """A fresh train state from the trained detector's weights and one
-    step (TF32 convolutions on or off) -> (step, its loss and gradient
-    norm)."""
+def dp_first_step(torch, x, t, group, tf32: bool, row=None):
+    """A fresh train state from the trained detector's weights (split over
+    the mesh ``row`` when one is given) and one step (TF32 convolutions on
+    or off) -> (step, its loss and gradient norm)."""
     from vtd_tpu_torch.convert import dbnet_from_jax
     from vtd_tpu_torch.models.dbnet import DBNet
     from vtd_tpu_torch.train.checkpoint import load_weights
@@ -2507,7 +2528,7 @@ def dp_first_step(torch, x, t, group, tf32: bool):
     st = create_train_state(
         DBNet(dtype=torch.float32),
         weights=load_weights(CHECKPOINTS["detector"], dbnet_from_jax),
-        device="cuda")
+        device="cuda", row=row)
     step = make_train_step(st["model"], st["optimizer"], group)
     loss = float(step(x, t)["loss"])
     return step, st["model"], {"loss": loss,
@@ -2922,9 +2943,251 @@ def run_hostapi(torch, np, card, results, state, tmp):
           f"the pipeline's CRNN frames {frames:g}")
 
 
+# the default TrOCRConfig split over a row against the unsplit recogniser,
+# both bf16 on the card: the encoder output's distance relative to its
+# norm (bf16 rounds at 2**-9 relative; the split projections may round
+# elsewhere, and 12 layers carry it)
+TP_ENC_RTOL = 2e-2
+TP_MIN_IOU = 0.95  # a split pipeline's boxes against the fused path's
+# a float32 detector's maps split over a row against unsplit, TF32 off:
+# the same products in another summation order
+TP_MAP_TOL = 1e-4
+
+
+def tp_phase(torch, np, card, results, state):
+    """The mesh's model axis on the card: split pipelines, a split TrOCR,
+    a split DBNet step and ``train-detector --mesh 1x2``. Its files live
+    in a directory removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vtd_tp_") as tmp:
+        run_tp(torch, np, card, results, state, tmp)
+
+
+def box_iou(a, b) -> float:
+    ix = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return inter / max(union, 1e-9)
+
+
+def same_texts_iou(got, want, label: str) -> float:
+    """Per frame: the same transcripts, each box at IoU >= TP_MIN_IOU with
+    its twin's. Returns the least IoU."""
+    worst = 1.0
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} frames, {len(want)}")
+    for f, (x, y) in enumerate(zip(got, want)):
+        dx = sorted(x, key=lambda d: d["text"])
+        dy = sorted(y, key=lambda d: d["text"])
+        if [d["text"] for d in dx] != [d["text"] for d in dy]:
+            raise AssertionError(f"{label} frame {f}: texts")
+        for p, q in zip(dx, dy):
+            worst = min(worst, box_iou(p["bbox"], q["bbox"]))
+    if worst < TP_MIN_IOU:
+        raise AssertionError(f"{label}: a box at IoU {worst:.4f}")
+    return worst
+
+
+def run_tp(torch, np, card, results, state, tmp):
+    from vtd_tpu_torch.core.mesh import make_mesh
+    from vtd_tpu_torch.ops.cc_kernels import neighbor_min_sweeps
+    from vtd_tpu_torch.parallel import n_split
+    from vtd_tpu_torch.runtime import TextDetector, VideoTextPipeline
+    from vtd_tpu_torch.runtime.trocr_runtime import TransformerRecognizer
+    from vtd_tpu_torch.train.train_detector import main as train_detector_main
+
+    n_cards = torch.cuda.device_count()
+    ref = verify_frames(np)
+    frames = np.stack([ref["frame_i420"]] * B)
+    valid = np.ones(B, bool)
+    plan = [(frames, valid, None)] * N_BATCHES
+
+    # -- split CRNN pipelines against the fused path ------------------------
+    fused = trained_pipeline(state, "crnn")
+    fused.process_batch(frames, valid)  # warm-up
+    want, elapsed = run_pipelined(torch, fused, plan)
+    rates = {"fused": B * N_BATCHES / elapsed}
+    meshes = {"1x2": (1, ["cuda:0"] * 2), "2x2": (2, ["cuda:0"] * 4)}
+    if n_cards >= 2:
+        meshes["1x2_cards"] = (1, ["cuda:0", "cuda:1"])
+    else:
+        print("tp: a row over distinct cards: not run (one card visible)")
+    for name, (n_rows, devices) in meshes.items():
+        pipe = VideoTextPipeline(
+            detector_path=CHECKPOINTS["detector"],
+            recognizer_path=CHECKPOINTS["crnn"], use_transformer_ocr=False,
+            batch_size=B, max_dets=64, host_downscale=640,
+            transfer_format="yuv420",
+            mesh=make_mesh(n_data=n_rows, n_model=2, devices=devices))
+        try:
+            split = [(n_split(r.detector.model), n_split(r.recognizer.crnn))
+                     for r in pipe.replicas]
+            if split != [(38, 13)] * n_rows:
+                raise AssertionError(f"tp {name}: split tensors {split}")
+            pipe.process_batch(frames, valid)  # warm-up
+            reset_counts()
+            outs, elapsed = run_pipelined(torch, pipe, plan)
+            calls, cuda = record_path(results, f"tp_{name}_path")
+            sweeps = neighbor_min_sweeps.launches
+        finally:
+            pipe.close()
+        worst = 1.0
+        for k, o in enumerate(outs):
+            check_against_reference(o, ref, "crnn")
+            worst = min(worst, same_texts_iou(o, want[k],
+                                              f"tp {name} batch {k}"))
+        if calls != 3 * n_rows * N_BATCHES or sweeps:
+            raise AssertionError(
+                f"tp {name}: {calls} segmented_cc_round calls and {sweeps} "
+                f"neighbor_min_sweeps over {N_BATCHES} batches, expected "
+                f"{3 * n_rows * N_BATCHES} and 0")
+        rates[name] = B * N_BATCHES / elapsed
+        print(f"tp {name} mesh {devices}: DBNet / CRNN split tensors "
+              f"{split[0][0]} / {split[0][1]} a row; {N_BATCHES} pipelined "
+              f"batches x {B} frames read {sorted(TRUTH)} on every frame, "
+              f"texts equal to the fused path, least box IoU {worst:.4f}; "
+              f"{calls} segmented_cc_round calls ({cuda} CUDA launches), "
+              f"{calls / N_BATCHES / n_rows:g} = "
+              f"{cuda / N_BATCHES / n_rows:g} a batch a row; "
+              f"neighbor_min_sweeps {sweeps}; {rates[name]:.3f} frames/s "
+              f"pipelined against {rates['fused']:.3f} fused ({card})")
+
+    # -- the default TrOCRConfig split over a row ---------------------------
+    tr = TransformerRecognizer(seed=0, device="cuda")
+    split_tr = tr.replica(["cuda:0", "cuda:0"])
+    n_tr = n_split(split_tr.model)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    if n_tr != 195:
+        raise AssertionError(f"tp TrOCR: {n_tr} split tensors, expected 195")
+    c = tr.cfg
+    gen = torch.Generator().manual_seed(12)
+    crops = (torch.rand((16, c.image_size, c.width, 3), generator=gen) * 2
+             - 1).to(c.dtype).cuda()
+    ms = {}
+    with torch.inference_mode():
+        for rec in (tr, split_tr):
+            rec.generate(crops[:2])  # warm-up
+        for key, rec in (("one", tr), ("split", split_tr)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, conf = rec.generate(crops)
+            torch.cuda.synchronize()
+            ms[key] = ((time.perf_counter() - t0) * 1e3, toks, conf)
+        enc0 = tr.model.encode(crops).float()
+        enc1 = split_tr.model.encode(crops).float()
+    enc_rel = float((enc1 - enc0).norm() / enc0.norm())
+    same_toks = torch.equal(ms["one"][1], ms["split"][1])
+    conf_err = float((ms["one"][2] - ms["split"][2]).abs().max())
+    print(f"tp TrOCR default config ({n_params / 1e6:.1f} M parameters, "
+          f"{c.dtype}), {n_tr} split tensors on [cuda:0, cuda:0]: one chunk "
+          f"of 16 crops, tokens equal {same_toks}, confidences within "
+          f"{conf_err:.2e}, encoder output {enc_rel:.2e} of its norm off "
+          f"(allowed {TP_ENC_RTOL:g}); {ms['split'][0]:.1f} ms a chunk split, "
+          f"{ms['one'][0]:.1f} ms unsplit ({card})")
+    if not same_toks:
+        raise AssertionError("tp TrOCR: split tokens differ from unsplit")
+    if not enc_rel <= TP_ENC_RTOL:
+        raise AssertionError(f"tp TrOCR: encoder output {enc_rel:.2e} off")
+    del tr, split_tr, crops, enc0, enc1, ms
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one DBNet step on a 1x2 row ----------------------------------------
+    row = ["cuda:0", "cuda:0"]
+    tf32_was = torch.backends.cudnn.allow_tf32
+    x, t = dp_inputs(torch)
+    try:
+        one = dp_first_step(torch, x, t, None, tf32=False)[2]
+        two = dp_first_step(torch, x, t, None, tf32=False, row=row)[2]
+        times = {}
+        for key, r in (("one", None), ("split", row)):
+            step, model, _ = dp_first_step(torch, x, t, None, tf32=True,
+                                           row=r)
+            times[key], _ = timed_steps(torch, lambda: step(x, t)["loss"],
+                                        DP_STEPS)
+            del step, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_was
+    rows = {"1x2": two}
+    if n_cards >= 2:
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            rows["1x2_cards"] = dp_first_step(
+                torch, x, t, None, tf32=False, row=["cuda:0", "cuda:1"])[2]
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32_was
+    for name, got in rows.items():
+        dl = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        dn = abs(got["grad_norm"] - one["grad_norm"]) / abs(one["grad_norm"])
+        print(f"tp DBNet 640x640 batch {DP_BATCH} float32 from "
+              f"{CHECKPOINTS['detector']} on the row {name}: true float32 "
+              f"first step against the one-process step: loss rel {dl:.2e} "
+              f"(allowed {DP_LOSS_RTOL:g}), gradient norm rel {dn:.2e} "
+              f"(allowed {DP_NORM_RTOL:g}) ({card})")
+        if not (dl <= DP_LOSS_RTOL and dn <= DP_NORM_RTOL):
+            raise AssertionError(f"tp DBNet step {name}: off the one-process "
+                                 "step")
+    print(f"tp DBNet step on the 1x2 row {row}: "
+          f"{float(np.median(times['split'])):.3f} ms/step split, "
+          f"{float(np.median(times['one'])):.3f} one process (TF32 "
+          f"convolutions, median of {DP_STEPS}, CUDA events; {card})")
+    del x, t
+
+    # -- train-detector --mesh 1x2 ------------------------------------------
+    res = train_detector_main([
+        "--synthetic", "--n-samples", "20", "--image-size", "160",
+        "--epochs", "1", "--batch-size", "8", "--mesh", "1x2",
+        "--device", "cuda", "--checkpoint-dir", f"{tmp}/dbnet"])
+    if res.get("status") != "success":
+        raise AssertionError(f"train-detector --mesh 1x2: {res}")
+    det = TextDetector(model_path=res["best_model_path"], input_size=160,
+                       device="cuda", dtype=torch.float32)
+    split_det = det.replica(row)
+    frame = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 160, 160, 3), dtype=np.uint8)).cuda()
+    # true float32 for this comparison (cuDNN would run TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            p0, p1 = det.probability(frame), split_det.probability(frame)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_was
+    gap = float((p1 - p0).abs().max())
+    if not (torch.isfinite(p0).all() and gap <= TP_MAP_TOL):
+        raise AssertionError(f"the --mesh 1x2 checkpoint: maps {gap}")
+    print(f"train-detector --mesh 1x2 --device cuda: in this process, status "
+          f"success, val_loss {res['best_val_loss']:.4f}; its checkpoint "
+          f"read by an unsplit TextDetector, whose float32 maps are within "
+          f"{gap:.2e} (allowed {TP_MAP_TOL:g}) of the same weights split "
+          f"over {row}")
+    if n_cards < 4:
+        print("tp: train-detector --mesh 2x2 over four cards: not run "
+              f"({n_cards} visible)")
+        return
+    res = train_detector_main([
+        "--synthetic", "--n-samples", "20", "--image-size", "160",
+        "--epochs", "1", "--batch-size", "8", "--mesh", "2x2",
+        "--device", "cuda", "--checkpoint-dir", f"{tmp}/dbnet22"])
+    if res.get("status") != "success":
+        raise AssertionError(f"train-detector --mesh 2x2: {res}")
+    det = TextDetector(model_path=res["best_model_path"], input_size=160,
+                       device="cuda")
+    with torch.inference_mode():
+        if not torch.isfinite(det.probability(frame)).all():
+            raise AssertionError("the --mesh 2x2 checkpoint: non-finite maps")
+    print(f"train-detector --mesh 2x2 --device cuda: two NCCL ranks on rows "
+          f"[cuda:0, cuda:1] and [cuda:2, cuda:3], status success, val_loss "
+          f"{res['best_val_loss']:.4f}, checkpoint read by TextDetector")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
           "engine", "beam", "serve", "fleet", "train", "parallel",
-          "hostapi")
+          "hostapi", "tp")
 
 
 def main(argv=None) -> int:
@@ -2983,6 +3246,7 @@ def main(argv=None) -> int:
         "train": lambda: train_phase(torch, np, card),
         "parallel": lambda: parallel_phase(torch, np, card, results, state),
         "hostapi": lambda: hostapi_phase(torch, np, card, results, state),
+        "tp": lambda: tp_phase(torch, np, card, results, state),
     }
     for name in PHASES:
         if name in phases:

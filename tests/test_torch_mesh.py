@@ -112,9 +112,11 @@ def test_batch_sharding_and_replicas():
         [(0, 0, 2)], [(0, 2, 4)], [(1, 0, 2)], [(1, 2, 4)]]
     assert row_blocks(8, 4, 2, 1) == [(2, 0, 2), (3, 0, 2)]
     assert row_blocks(6, 2, 3, 1) == [(0, 2, 3), (1, 0, 1)]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        infer_param_shardings({}, make_mesh(n_data=4, n_model=2,
-                                            device="cpu"))
+    # the model axis: a wide kernel split by its output channels
+    wide = torch.nn.Conv2d(256, 512, 1)
+    assert infer_param_shardings(
+        wide, make_mesh(n_data=4, n_model=2, device="cpu")) == {
+            "weight": 0, "bias": None}
 
     det = TextDetector(input_size=64, max_dets=4, device="cpu")
     reps = shard_variables(det, make_mesh(n_data=3, device="cpu"))

@@ -104,16 +104,31 @@ def test_mesh_equals_one_device(weights, single, n):
 
 def test_mesh_refusals(weights):
     from vtd_tpu_torch.core.mesh import make_mesh
+    from vtd_tpu_torch.parallel import n_split
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
     with pytest.raises(ValueError, match="divisible"):
         VideoTextPipeline(*weights, batch_size=6, device="cpu",
                           mesh=make_mesh(n_data=4, device="cpu"),
                           **tasks.PIPE)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        VideoTextPipeline(*weights, batch_size=8, device="cpu",
+    # with a model axis the batch divides by the data axis only: 6 frames
+    # do not go over 4 data rows, 3 go over one row of 2 entries
+    with pytest.raises(ValueError, match="divisible"):
+        VideoTextPipeline(*weights, batch_size=6, device="cpu",
                           mesh=make_mesh(n_data=4, n_model=2, device="cpu"),
                           **tasks.PIPE)
+    tp = VideoTextPipeline(*weights, batch_size=3, device="cpu",
+                           mesh=make_mesh(n_data=1, n_model=2, device="cpu"),
+                           **tasks.PIPE)
+    try:
+        assert len(tp.replicas) == 1
+        assert n_split(tp.replicas[0].detector.model) == 38
+        frames = tasks.text_frames(b=3)
+        out = tp.process_batch(frames, np.ones(3, bool))
+        assert [d["text"] for f in out for d in f] == [
+            "TXT0", "TXT1", "TXT2"]
+    finally:
+        tp.close()
     pipe = _mesh_pipeline(weights, 2)
     try:
         with pytest.raises(ValueError, match="divisible"):

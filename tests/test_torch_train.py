@@ -584,13 +584,17 @@ def test_model_trainer_failure_path_and_mesh(tmp_path):
     result = trainer.train(DBNet(dtype=torch.float32), bad, bad)
     assert result["status"] == "failed"
     assert "error" in result
-    # a mesh: the data axis trains (tests/test_torch_train_mesh.py), the
-    # model axis raises naming its ROADMAP item
+    # a mesh: the data axis trains (tests/test_torch_train_mesh.py), and
+    # so does the model axis (tests/test_torch_tp.py); a failed run on a
+    # split model reports its error the same way
     from vtd_tpu_torch.core.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ModelTrainer({}, mesh=make_mesh(n_data=2, n_model=2, device="cpu"),
-                     device="cpu")
+    tp = ModelTrainer({"checkpoint_dir": str(tmp_path / "tp"),
+                       "max_epochs": 1, "batch_size": 2},
+                      mesh=make_mesh(n_data=1, n_model=2, device="cpu"),
+                      device="cpu")
+    failed = tp.train(DBNet(dtype=torch.float32), bad, bad)
+    assert failed["status"] == "failed" and failed["error"]
     one = ModelTrainer({"checkpoint_dir": str(tmp_path / "m"),
                         "max_epochs": 1, "batch_size": 2},
                        mesh=make_mesh(n_data=1, device="cpu"), device="cpu")

@@ -227,18 +227,25 @@ def test_cli_train_detector_mesh(tmp_path, capsys):
 
 
 def test_cli_mesh_failures(tmp_path, capsys):
-    """The model axis raises naming its ROADMAP item; ranks that fail make
-    the command fail (exit 1, the rank's error in the result)."""
+    """A mesh with an empty axis is refused; a 4x2 mesh trains only as 4
+    ranks of a group; ranks that fail make the command fail (exit 1, the
+    rank's error in the result)."""
     from vtd_tpu_torch.__main__ import main
     from vtd_tpu_torch.core.mesh import make_mesh
     from vtd_tpu_torch.models.dbnet import DBNet
     from vtd_tpu_torch.train.trainer import ModelTrainer, TextDetectionDataset
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["train-detector", "--mesh", "4x2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ModelTrainer({}, mesh=make_mesh(n_data=4, n_model=2, device="cpu"),
-                     device="cpu")
+    with pytest.raises(ValueError, match="bad mesh"):
+        main(["train-detector", "--mesh", "4x0", "--device", "cpu"])
+    ds4 = TextDetectionDataset(np.zeros((4, 64, 64, 3), np.float32), {
+        "probability_map": np.zeros((4, 64, 64), np.float32),
+        "threshold_map": np.zeros((4, 64, 64), np.float32)})
+    out = ModelTrainer({"checkpoint_dir": str(tmp_path / "x42"),
+                        "batch_size": 4},
+                       mesh=make_mesh(n_data=4, n_model=2, device="cpu"),
+                       device="cpu").train(DBNet(dtype=torch.float32), ds4,
+                                           ds4)
+    assert out["status"] == "failed" and "one process" in out["error"]
     rc = main(["train-detector", "--synthetic", "--n-samples", "6",
                "--image-size", "64", "--epochs", "1", "--batch-size", "3",
                "--mesh", "2x1", "--device", "cpu", "--checkpoint-dir",

@@ -267,10 +267,21 @@ def test_cli_train_detector(tmp_path, capsys):
     res = _last_json(capsys.readouterr().out)
     assert rc == 0 and res["status"] == "success", res
     assert res["best_model_path"].endswith(".pt")
-    # --mesh Dx1 trains data-parallel (tests/test_torch_train_mesh.py); a
-    # model axis raises naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["train-detector", "--mesh", "2x2", "--device", "cpu"])
+    # --mesh Dx1 trains data-parallel (tests/test_torch_train_mesh.py);
+    # --mesh 1x2 splits the model over a row of two entries in this
+    # process, and its checkpoint loads into an unsplit detector
+    from vtd_tpu_torch.runtime import TextDetector
+
+    rc = main(["train-detector", "--synthetic", "--n-samples", "6",
+               "--image-size", "64", "--epochs", "1", "--batch-size", "4",
+               "--checkpoint-dir", str(tmp_path / "tp"), "--mesh", "1x2",
+               "--device", "cpu"])
+    res = _last_json(capsys.readouterr().out)
+    assert rc == 0 and res["status"] == "success", res
+    det = TextDetector(model_path=res["best_model_path"], input_size=64,
+                       device="cpu")
+    prob = det.probability(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
+    assert prob.shape == (1, 64, 64) and bool(torch.isfinite(prob).all())
 
 
 def test_cli_train_recognizer(tmp_path, capsys):

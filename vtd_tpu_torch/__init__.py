@@ -25,7 +25,10 @@ Since the sixth: the serving fleet (the file and TCP brokers,
 client) and the ``torch.profiler`` trace behind ``profile_dir``. Since
 the seventh: several devices (``core/mesh.py``, ``parallel/``): data-
 parallel inference over a mesh of model replicas, the two-stage runner,
-and data-parallel DBNet training with one process per rank.
+and data-parallel DBNet training with one process per rank. Since the
+ninth: the mesh's model axis (``parallel/tensor_parallel.py``), each
+replica's or rank's models split over its row of devices by the
+reference's rule.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; they raise when CUDA is absent instead of falling back.

@@ -12,10 +12,12 @@ The port keeps its names and uses PyTorch's own idiom underneath:
   * training runs one process per data-axis entry (a rank), joined by
     ``torch.distributed``: NCCL on the card, gloo on the CPU
     (:func:`init_distributed`, :func:`spawn_ranks`).
-
-The model axis (tensor parallelism) is not ported yet: a mesh with
-``n_model > 1`` can be built, and the pipeline and the trainer refuse it
-with :data:`MODEL_AXIS_NOT_PORTED`.
+  * the ``n_model`` entries of a data-axis row (:meth:`Mesh.row`) are the
+    devices that row's wide layers are split over, all inside its one
+    replica or rank (``parallel/tensor_parallel.py``): the activations
+    live on the row's first entry, the lead. A rank's row is given by
+    :func:`rank_row`. Entries may repeat here too (``[cuda:0, cuda:0]``
+    on one card).
 """
 from __future__ import annotations
 
@@ -37,11 +39,6 @@ from .device import resolve_device
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-MODEL_AXIS_NOT_PORTED = (
-    "the mesh's model axis (tensor parallelism, n_model > 1) waits for "
-    "ROADMAP queue 1 item 11"
-)
-
 # How long a rank waits for the others to join a group, and for any one
 # collective, before it raises instead of hanging.
 GROUP_TIMEOUT_S = 600.0
@@ -60,6 +57,10 @@ class Mesh:
     def data_devices(self) -> List[torch.device]:
         """The first device of each data-axis row, in row order."""
         return [self.devices[i, 0] for i in range(self.devices.shape[0])]
+
+    def row(self, i: int) -> List[torch.device]:
+        """The model-axis devices of data-axis row ``i``, lead first."""
+        return list(self.devices[i])
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, "
@@ -160,6 +161,18 @@ def local_batch_slice(
     rows = n_data // world_size
     per_row = global_batch // n_data
     return rank * rows * per_row, rows * per_row
+
+
+def rank_row(
+    mesh: Mesh, rank: Optional[int] = None, world_size: Optional[int] = None,
+) -> List[torch.device]:
+    """The mesh row of this process: the first of the data rows that
+    :func:`local_batch_slice` gives it (its one row when there is one rank
+    per row, as in training). ``rank`` / ``world_size`` default to the
+    process group's (row 0 outside any group)."""
+    n_data = mesh.shape[DATA_AXIS]
+    start, _ = local_batch_slice(n_data, mesh, rank, world_size)
+    return mesh.row(start)
 
 
 def _backend(device: torch.device) -> str:

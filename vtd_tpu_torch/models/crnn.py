@@ -83,14 +83,15 @@ class CRNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # at least float32 after the convolutions (float64 stays float64)
-        wide = torch.promote_types(self.classifier.weight.dtype, torch.float32)
+        wide = torch.promote_types(
+            next(self.classifier.parameters()).dtype, torch.float32)
         for m in self.cnn:
-            if isinstance(m, nn.Conv2d):
-                x = m(x.to(m.weight.dtype))
-            elif isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.BatchNorm2d):
                 x = m(x.to(wide))
-            else:
+            elif isinstance(m, (nn.ReLU, nn.MaxPool2d)):
                 x = m(x)
+            else:  # a convolution, whole or split over a mesh row
+                x = m(x.to(next(m.parameters()).dtype))
         b, c, h, w = x.shape
         # [B, C, 1, T] -> [B, T, C*H] (H = 1)
         seq = x.permute(0, 3, 1, 2).reshape(b, w, c * h).to(wide)

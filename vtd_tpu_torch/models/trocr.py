@@ -190,6 +190,8 @@ class LayerNorm32(nn.LayerNorm):
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype``, the weights cast at use."""
+    if not isinstance(layer, nn.Linear):  # split over a mesh row
+        return layer(x, dtype)
     b = layer.bias
     return F.linear(x.to(dtype), layer.weight.to(dtype),
                     None if b is None else b.to(dtype))
@@ -290,10 +292,12 @@ class ViTEncoder(nn.Module):
         tokens in row-major order after the CLS token."""
         c = self.cfg
         pe = self.patch_embed
-        x = F.conv2d(
-            images.to(c.dtype).permute(0, 3, 1, 2), pe.weight.to(c.dtype),
-            pe.bias.to(c.dtype), stride=c.patch_size,
-        )
+        x = images.to(c.dtype).permute(0, 3, 1, 2)
+        if isinstance(pe, nn.Conv2d):
+            x = F.conv2d(x, pe.weight.to(c.dtype), pe.bias.to(c.dtype),
+                         stride=c.patch_size)
+        else:  # split over a mesh row: casts at use itself
+            x = pe(x, c.dtype)
         x = x.flatten(2).transpose(1, 2)
         cls = self.cls_token.to(c.dtype).expand(x.shape[0], 1, c.enc_dim)
         x = torch.cat([cls, x], 1) + self.pos_embed.to(c.dtype)

@@ -68,14 +68,19 @@ def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
 def average_gradients(params: Iterable[torch.nn.Parameter],
                       group: dist.ProcessGroup) -> None:
     """Replace every ``.grad`` by its mean over the group: one all-reduce
-    of all gradients flattened together."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat /= dist.get_world_size(group)
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    a device of the gradients on it flattened together, the devices in the
+    order their first gradient comes (a model split over a mesh row holds
+    its shards on the row's devices; every rank's row splits the same
+    tensors, so the flattened blocks match across ranks)."""
+    by_device: dict = {}
+    for p in params:
+        if p.grad is not None:
+            by_device.setdefault(p.grad.device, []).append(p.grad)
+    for grads in by_device.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= dist.get_world_size(group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()

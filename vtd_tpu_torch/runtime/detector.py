@@ -18,6 +18,7 @@ from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.dbnet import DBNet
 from ..ops.db_postprocess import db_postprocess, extract_detections
 from ..ops.preprocess import preprocess_frames, yuv420_to_bgr
+from ..parallel.tensor_parallel import tensor_parallel_
 from ..train.checkpoint import load_weights, save_state_dict
 
 logger = logging.getLogger(__name__)
@@ -87,17 +88,21 @@ class TextDetector:
         return {k: v.to(self.device) for k, v in sd.items()}
 
     def save_model(self, model_path: str) -> str:
-        """Write the model's state dict (its compute dtype, on the CPU) to
-        ``model_path``, any name, in the port's torch format; returns the
-        path."""
+        """Write the model's full state dict (its compute dtype, on the
+        CPU; a model split over a mesh row is gathered) to ``model_path``,
+        any name, in the port's torch format; returns the path."""
         return save_state_dict(model_path, self.model)
 
-    def replica(self, device) -> "TextDetector":
-        """This detector with its own copy of the model on ``device`` (the
-        same weights and compute dtype; no checkpoint is read)."""
+    def replica(self, devices) -> "TextDetector":
+        """This detector with its own copy of the model (the same weights
+        and compute dtype; no checkpoint is read) on ``devices``: one
+        device, or a mesh row whose wide layers the copy is split over,
+        its activations on the row's first entry."""
+        row = (list(devices) if isinstance(devices, (list, tuple))
+               else [devices])
         new = copy.copy(self)
-        new.device = resolve_device(device)
-        new.model = copy.deepcopy(self.model).to(new.device)
+        new.device = resolve_device(row[0])
+        new.model = tensor_parallel_(copy.deepcopy(self.model), row)
         return new
 
     # ------------------------------------------------------------------

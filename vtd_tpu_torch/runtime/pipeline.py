@@ -30,13 +30,16 @@ kernels, written as a Chrome trace to
 ``<profile_dir>/process_video-<pid>-<unix ms>.json``.
 
 ``mesh`` (``core.mesh.make_mesh``) runs the batch data-parallel: each
-data-axis entry holds its own copy of the detector and the recogniser on
-its device and runs its contiguous block of the batch in its own thread
-and, on the card, its own CUDA stream (``parallel.sharding.Replica``);
-the packs are gathered in block order. The recognition budget stays the
-batch's: each block recognises its share of it, and a block whose valid
-slots exceed that share is dispatched again at the full budget, so that
-every transcript the single-device program would give is kept.
+data-axis row holds its own copy of the detector and the recogniser and
+runs its contiguous block of the batch in its own thread and, on the
+card, its own CUDA stream (``parallel.sharding.Replica``); the packs are
+gathered in block order. With a model axis the row's copies are split
+over the row's devices (``parallel.tensor_parallel``), their activations
+and everything but the split layers on the row's first entry. The
+recognition budget stays the batch's: each block recognises its share of
+it, and a block whose valid slots exceed that share is dispatched again
+at the full budget, so that every transcript the single-device program
+would give is kept.
 ``parallel_mode="two_stage"`` swaps in ``parallel.pipeline.
 TwoStagePipeline`` (detect and crop on one group of devices, recognise on
 the other) behind the same handles.
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.mesh import DATA_AXIS, MODEL_AXIS, MODEL_AXIS_NOT_PORTED
+from ..core.mesh import DATA_AXIS
 from ..core.schemas import summarize
 from ..obs import metrics as _metrics
 from ..ops.crop import crop_and_resize_boxes_mm
@@ -287,8 +290,6 @@ class VideoTextPipeline:
                 "slot); drop the knob or use the fused mode"
             )
         if mesh is not None:
-            if mesh.shape[MODEL_AXIS] > 1:
-                raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
             if batch_size % mesh.shape[DATA_AXIS]:
                 raise ValueError(
                     f"batch_size {batch_size} not divisible by the mesh "
@@ -354,7 +355,7 @@ class VideoTextPipeline:
         self._full_budget_latched = False
         self.mesh = mesh
         self.parallel_mode = parallel_mode
-        # one Replica per data-axis entry; none on one device
+        # one Replica per data-axis row; none on one device
         self.replicas: List[Replica] = []
         self._two_stage = None
         if mesh is not None:

@@ -21,6 +21,7 @@ import torch
 from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.crnn import CRNN, ID_TO_CHAR, build_vocab
 from ..ops.ctc import ctc_greedy_decode_arrays, ids_to_text
+from ..parallel.tensor_parallel import tensor_parallel_
 from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
@@ -96,15 +97,19 @@ class TextRecognizer:
             raise
         return {k: v.to(self.device) for k, v in sd.items()}
 
-    def replica(self, device) -> "TextRecognizer":
-        """This recognizer with its own copy of the model on ``device``
-        (no checkpoint is read)."""
+    def replica(self, devices) -> "TextRecognizer":
+        """This recognizer with its own copy of the model (no checkpoint
+        is read) on ``devices``: one device, or a mesh row whose wide
+        layers the copy is split over, its activations on the row's first
+        entry."""
+        row = (list(devices) if isinstance(devices, (list, tuple))
+               else [devices])
         new = copy.copy(self)
-        new.device = resolve_device(device)
+        new.device = resolve_device(row[0])
         if self.use_transformer:
-            new.transformer = self.transformer.replica(new.device)
+            new.transformer = self.transformer.replica(row)
         else:
-            new.crnn = copy.deepcopy(self.crnn).to(new.device)
+            new.crnn = tensor_parallel_(copy.deepcopy(self.crnn), row)
         return new
 
     def logits(self, crops: torch.Tensor) -> torch.Tensor:

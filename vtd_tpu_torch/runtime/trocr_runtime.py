@@ -35,6 +35,7 @@ from ..models.trocr import (
     init_weights_,
     load_config,
 )
+from ..parallel.tensor_parallel import tensor_parallel_
 from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
@@ -67,12 +68,16 @@ class TransformerRecognizer:
             init_weights_(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
 
-    def replica(self, device) -> "TransformerRecognizer":
-        """This recognizer with its own copy of the model on ``device``
-        (no checkpoint is read)."""
+    def replica(self, devices) -> "TransformerRecognizer":
+        """This recognizer with its own copy of the model (no checkpoint
+        is read) on ``devices``: one device, or a mesh row whose wide
+        layers the copy is split over, its activations on the row's first
+        entry."""
+        row = (list(devices) if isinstance(devices, (list, tuple))
+               else [devices])
         new = copy.copy(self)
-        new.device = resolve_device(device)
-        new.model = copy.deepcopy(self.model).to(new.device)
+        new.device = resolve_device(row[0])
+        new.model = tensor_parallel_(copy.deepcopy(self.model), row)
         return new
 
     @staticmethod

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..parallel.tensor_parallel import full_state_dict
 from .ocdbt import OcdbtStore, read_zarr
 
 _DICT_KEY = 2  # orbax's key_type of a dict key
@@ -127,13 +128,14 @@ def restore_variables(path: str | Path) -> Any:
 
 
 def save_state_dict(path: str | Path, model: torch.nn.Module) -> str:
-    """Write ``model``'s state dict to ``path`` (a ``.pt`` file; its
-    directory is made), its tensors on the CPU; returns the path. The
-    file is written under a temporary name and renamed, so a kill during
-    the save leaves any earlier file at ``path`` whole."""
+    """Write ``model``'s full state dict to ``path`` (a ``.pt`` file; its
+    directory is made), its tensors on the CPU, a model split over a mesh
+    row gathered (``parallel.tensor_parallel.full_state_dict``); returns
+    the path. The file is written under a temporary name and renamed, so
+    a kill during the save leaves any earlier file at ``path`` whole."""
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sd = full_state_dict(model)
     tmp = p.with_name(p.name + ".tmp")
     torch.save(sd, tmp)
     os.replace(tmp, p)

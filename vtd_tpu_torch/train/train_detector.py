@@ -7,7 +7,7 @@ reference's numpy seeds, so the loop runs with no data on disk.
 
 Usage:
   python -m vtd_tpu_torch train-detector --synthetic --epochs 5 \
-      --checkpoint-dir ./checkpoints/dbnet [--device cuda] [--mesh 2x1]
+      --checkpoint-dir ./checkpoints/dbnet [--device cuda] [--mesh 2x2]
 """
 from __future__ import annotations
 
@@ -79,8 +79,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--data", default="", help="npz with images/targets")
     parser.add_argument(
         "--mesh", default="",
-        help="'DxM' data x model mesh, e.g. 2x1: D data-parallel ranks, "
-             "one process each (M > 1 is not ported)",
+        help="'DxM' data x model mesh, e.g. 2x2: D data-parallel ranks, "
+             "one process each, each splitting its model over its row of "
+             "M devices (1xM trains in this process)",
     )
     parser.add_argument("--device", default="cuda")
     return parser
@@ -122,10 +123,14 @@ def train(args: argparse.Namespace) -> dict:
     )
     mesh = None
     if args.mesh:
-        # each rank computes on its own device; the mesh gives the shape
+        # rank r trains on row r; on the card the entries wrap around the
+        # visible cards
         d, m = _mesh_shape(args.mesh)
-        mesh = make_mesh(n_data=d, n_model=m,
-                         devices=[resolve_device(args.device)] * (d * m))
+        dev = resolve_device(args.device)
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        mesh = make_mesh(n_data=d, n_model=m, devices=[
+            torch.device("cuda", i % n_cards) if n_cards else dev
+            for i in range(d * m)])
     trainer = ModelTrainer(
         {
             "checkpoint_dir": args.checkpoint_dir,
@@ -150,20 +155,19 @@ def _rank_train(rank: int, args: argparse.Namespace) -> dict:
 
 
 def main(argv=None) -> dict:
-    """Run the command. ``--mesh Dx1`` outside a process group spawns D
+    """Run the command. ``--mesh DxM`` outside a process group spawns D
     ranks (gloo on the CPU, NCCL on the card) and returns rank 0's result,
-    or a failed result naming the rank that failed; a process already in
-    a group is one rank of it."""
+    or a failed result naming the rank that failed; ``1xM`` with M > 1
+    needs no group and trains in this process (``1x1`` spawns its one
+    rank); a process already in a group is one rank of it."""
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     if args.mesh:
-        from ..core.mesh import MODEL_AXIS_NOT_PORTED, spawn_ranks
+        from ..core.mesh import spawn_ranks
 
         d, m = _mesh_shape(args.mesh)
-        if m > 1:
-            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
-        if not torch.distributed.is_initialized():
+        if (d > 1 or m == 1) and not torch.distributed.is_initialized():
             try:
                 result = spawn_ranks(_rank_train, (args,), world_size=d,
                                      device=args.device)[0]

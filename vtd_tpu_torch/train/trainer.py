@@ -22,25 +22,31 @@ rank iterates the same shuffled global batches and takes its
 batch's (``parallel.collectives.data_group``); the gradients are averaged
 over the ranks after backward, so AdamW takes the same step everywhere;
 evaluation's loss and confusion counts are global; rank 0 writes the
-checkpoints (plain state dicts). The model axis is not ported
-(``core.mesh.MODEL_AXIS_NOT_PORTED``).
+checkpoints (plain state dicts). On a mesh with a model axis each rank
+splits its model over its own row (``core.mesh.rank_row``,
+``parallel.tensor_parallel``) before AdamW is built: the batch and every
+replicated layer on the row's first entry, the shards of the wide layers
+on its entries; the checkpoints hold the full state dict, which an
+unsplit ``TextDetector`` loads. ``train-detector --mesh DxM`` spawns D
+ranks, not D*M.
 """
 from __future__ import annotations
 
 import logging
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (
+    Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..core.device import resolve_device, seeded_init_
-from ..core.mesh import (
-    DATA_AXIS, MODEL_AXIS, MODEL_AXIS_NOT_PORTED, local_batch_slice,
-)
+from ..core.mesh import DATA_AXIS, MODEL_AXIS, local_batch_slice, rank_row
 from ..parallel.collectives import average_gradients, data_group
+from ..parallel.tensor_parallel import tensor_parallel_
 from .checkpoint import save_state_dict
 from .losses import db_loss
 
@@ -101,17 +107,21 @@ def create_train_state(
     weights: Optional[Dict[str, torch.Tensor]] = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    row: Optional[Sequence] = None,
 ) -> Dict[str, Any]:
     """The model's weights (``weights``, a port state dict, or drawn from
     ``seed`` as ``core.device.seeded_init_`` draws them), on ``device``,
-    and AdamW over its parameters. The learning rate lives in the
-    optimizer's ``param_groups``, where the plateau rule scales it."""
-    dev = resolve_device(device)
+    and AdamW over its parameters. With ``row`` (a mesh row of two or
+    more devices) the model is split over the row instead, its first
+    entry in the place of ``device``, before AdamW takes its parameters.
+    The learning rate lives in the optimizer's ``param_groups``, where the
+    plateau rule scales it."""
+    dev = resolve_device(row[0] if row else device)
     if weights is not None:
         model.load_state_dict(weights)
     else:
         seeded_init_(model, seed)
-    model.to(dev)
+    tensor_parallel_(model, row or [dev])
     optimizer = torch.optim.AdamW(
         model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
         weight_decay=weight_decay,
@@ -185,11 +195,22 @@ class ModelTrainer:
 
     def __init__(self, config: Dict[str, Any], mesh: Optional[Any] = None,
                  device: str = "cuda"):
-        if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
-            raise NotImplementedError(MODEL_AXIS_NOT_PORTED)
         self.config = dict(config)
         self.mesh = mesh
         self.device = resolve_device(device)
+
+    def _row(self) -> Optional[List[torch.device]]:
+        """This rank's mesh row when the mesh has a model axis, else None.
+        The row's first entry becomes the trainer's device (and on the
+        card the current one): the batches, the collectives and every
+        replicated layer live there."""
+        if self.mesh is None or self.mesh.shape[MODEL_AXIS] == 1:
+            return None
+        row = rank_row(self.mesh)
+        self.device = row[0]
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        return row
 
     def _data_parallel(self, batch_size: int):
         """(group, (start, size) of this rank's rows): (None, whole batch)
@@ -204,7 +225,7 @@ class ModelTrainer:
             if n == 1:
                 return None, (0, batch_size)
             raise ValueError(
-                f"a {n}x1 mesh trains one process per data-axis entry: "
+                f"a mesh of {n} data rows trains one process per row: "
                 "join them with core.mesh.init_distributed, or run "
                 "train-detector --mesh")
         if dist.get_world_size() != n:
@@ -234,12 +255,14 @@ class ModelTrainer:
             group, (start, size) = self._data_parallel(batch_size)
             rows = slice(start, start + size)
             writer = group is None or dist.get_rank() == 0
+            row = self._row()
             state = create_train_state(
                 model,
                 learning_rate=float(cfg.get("learning_rate", 1e-4)),
                 weight_decay=float(cfg.get("weight_decay", 1e-5)),
                 seed=int(cfg.get("seed", 0)),
                 device=self.device,
+                row=row,
             )
             optimizer = state["optimizer"]
             train_step = make_train_step(model, optimizer, group)
@@ -380,7 +403,7 @@ class ModelTrainer:
             seeded_init_(model, 0)
         else:
             model.load_state_dict(variables)
-        model.to(self.device)
+        tensor_parallel_(model, self._row() or [self.device])
         batch_size = int(self.config.get("batch_size", 8))
         group, (start, size) = self._data_parallel(batch_size)
         return self._evaluate_epoch(make_eval_step(model, group), test_data,
