@@ -143,7 +143,20 @@ any error:
              unsplit ``TextDetector``; with two or more cards also the
              pipeline and the DBNet step on a row over two cards, with
              four ``train-detector --mesh 2x2`` as two NCCL ranks, each
-             on a row of two cards.
+             on a row of two cards;
+  decode     the native libav decoder: whether the machine has libav (the
+             decoder's ``g++ -E`` header probe beside ``pkg-config
+             --modversion libavcodec libswscale``, which must agree);
+             with libav, build it, hold native against cv2 on the serve
+             clip (640x640 I420, stride and keyframe: frame numbers,
+             timestamps, valid, orig_size and dups equal, pixels within a
+             mean absolute difference of 6.0 a batch) and run the trained
+             CRNN pipeline's ``process_video`` at native and at cv2
+             (frames/s, host ms per decoded batch, ``segmented_cc_round``
+             counted on the native path); without libav, show that
+             ``available()`` is False, ``decode_backend="native"`` raises
+             ``ValueError`` and 'auto' gives cv2's batches byte for byte,
+             and count the kernel on ``process_video`` at 'auto'.
 Last come one JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
@@ -3185,9 +3198,199 @@ def run_tp(torch, np, card, results, state, tmp):
           f"{res['best_val_loss']:.4f}, checkpoint read by TextDetector")
 
 
+# the reference's own bound on a native batch against cv2's, mean
+# absolute difference of the shipped bytes (tests/test_native_video.py)
+DECODE_MEAN_ABS_TOL = 6.0
+DECODE_TARGET_FPS = 10.0
+DECODE_REPS = 3  # timed runs of each backend, in turns
+
+
+def libav_versions():
+    """``pkg-config --modversion libavcodec libswscale`` on one line, or
+    None where that fails (no pkg-config, or no libav .pc files)."""
+    try:
+        res = subprocess.run(
+            ["pkg-config", "--modversion", "libavcodec", "libswscale"],
+            capture_output=True, text=True, timeout=60)
+    except OSError:
+        return None
+    return " ".join(res.stdout.split()) if res.returncode == 0 else None
+
+
+def decode_batches(vp, clip, backend: str, mode: str):
+    """All batches of the serve clip as the trained pipeline ships them
+    (batch B, 640x640, I420), and the host seconds they took."""
+    t0 = time.perf_counter()
+    out = list(vp.extract_frame_batches(
+        clip, batch_size=B, target_fps=DECODE_TARGET_FPS, resize_to=640,
+        pixel_format="yuv420", sample_mode=mode, decode_backend=backend))
+    return out, time.perf_counter() - t0
+
+
+def same_batches(np, got, want, label: str, mean_abs_tol=None) -> float:
+    """Batch structure equal (frame numbers, timestamps, valid, orig_size,
+    dups); the frames byte-equal, or within ``mean_abs_tol`` mean absolute
+    difference a batch. Returns the largest batch's mean difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} batches, {len(want)}")
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g["dups"] != w["dups"] or (g["frames"] is None) != (
+                w["frames"] is None):
+            raise AssertionError(f"{label} batch {k}: other duplicates")
+        if w["frames"] is None:
+            continue
+        for key in ("frame_numbers", "timestamps", "valid"):
+            if not np.array_equal(g[key], w[key]):
+                raise AssertionError(f"{label} batch {k}: {key} differ")
+        if tuple(g["orig_size"]) != tuple(w["orig_size"]):
+            raise AssertionError(f"{label} batch {k}: orig_size "
+                                 f"{g['orig_size']} against {w['orig_size']}")
+        if g["frames"].shape != w["frames"].shape:
+            raise AssertionError(f"{label} batch {k}: frames "
+                                 f"{g['frames'].shape}, {w['frames'].shape}")
+        diff = float(np.abs(g["frames"].astype(np.int16)
+                            - w["frames"].astype(np.int16)).mean())
+        worst = max(worst, diff)
+        if (not np.array_equal(g["frames"], w["frames"])
+                if mean_abs_tol is None else diff >= mean_abs_tol):
+            raise AssertionError(f"{label} batch {k}: frames differ by "
+                                 f"{diff} mean (allowed {mean_abs_tol})")
+    return worst
+
+
+def timed_process_video(torch, pipe, clip, backend: str):
+    """``process_video`` on the trained pipeline at ``backend``; returns
+    the result and its host seconds (the card synchronised)."""
+    import asyncio
+
+    pipe.decode_backend = backend
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = asyncio.run(pipe.process_video(clip, ""))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def decode_phase(torch, np, card, results, state):
+    """The native libav decoder where the machine has libav, else its
+    honest absence. Its files live in a directory removed after it."""
+    import tempfile
+
+    pipe = trained_pipeline(state, "crnn")
+    backend = pipe.decode_backend
+    try:
+        with tempfile.TemporaryDirectory(prefix="vtd_decode_") as tmp:
+            run_decode(torch, np, card, results, pipe, tmp)
+    finally:
+        pipe.decode_backend = backend
+
+
+def run_decode(torch, np, card, results, pipe, tmp):
+    import os
+
+    from vtd_tpu_torch.native import video as native_video
+    from vtd_tpu_torch.video import VideoProcessor
+
+    missing = native_video.libav_missing()
+    versions = libav_versions()
+    print(f"decode: libav {'absent' if missing else 'present'} on this "
+          f"machine: g++ -E probe of {', '.join(native_video.AV_HEADERS)}: "
+          f"{missing or 'all found'}; pkg-config --modversion libavcodec "
+          f"libswscale: {versions or 'fails'} ({card})")
+    if (missing is None) != (versions is not None):
+        raise AssertionError("the decoder's header probe and pkg-config "
+                             "disagree on whether libav is here")
+    clip = os.path.join(tmp, "clip.mp4")
+    n_frames = write_serve_clip(np, clip) // int(
+        SERVE_FPS / DECODE_TARGET_FPS)
+    vp = VideoProcessor()
+
+    if missing:
+        print("decode: the native libav decoder was neither built nor run "
+              "on this card: its machine has no libav development files")
+        if native_video.available():
+            raise AssertionError("available() is True without libav")
+        native = vp.extract_frame_batches(clip, decode_backend="native")
+        raised = None
+        try:
+            next(native)
+        except ValueError as e:
+            raised = str(e)
+        if raised != f"native decode unavailable for {clip}":
+            raise AssertionError(f"decode_backend='native' without libav "
+                                 f"raised {raised!r}")
+        auto, _ = decode_batches(vp, clip, "auto", "stride")
+        cv, _ = decode_batches(vp, clip, "cv2", "stride")
+        same_batches(np, auto, cv, "auto against cv2")
+        reset_counts()
+        res, wall = timed_process_video(torch, pipe, clip, "auto")
+        calls, cuda = record_path(results, "decode_auto")
+        n_det = check_served_texts(res, "process_video at auto", n_frames)
+        if calls < 1:
+            raise AssertionError("process_video at auto launched no "
+                                 "segmented_cc_round")
+        print(f"decode: available() False; decode_backend='native' raises "
+              f"ValueError({raised!r}); 'auto' gave {len(auto)} batches "
+              f"byte-equal to 'cv2' on the serve clip; process_video at "
+              f"'auto' reads {sorted(TRUTH)} on all {n_frames} frames "
+              f"({n_det} detections, {wall * 1e3:.1f} ms), "
+              f"segmented_cc_round {calls} calls ({cuda} CUDA launches) "
+              f"({card})")
+        return
+
+    t0 = time.perf_counter()
+    lib = native_video.build()
+    print(f"decode: built {os.path.basename(lib)} with g++ in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for mode in ("stride", "keyframe"):
+        nat, _ = decode_batches(vp, clip, "native", mode)
+        cv, _ = decode_batches(vp, clip, "cv2", mode)
+        worst = same_batches(np, nat, cv, f"native against cv2 ({mode})",
+                             DECODE_MEAN_ABS_TOL)
+        print(f"decode: {mode}: native and cv2 give the same {len(nat)} "
+              f"batches (frame numbers, timestamps, valid, orig_size, "
+              f"dups); frames within {worst:.3f} mean absolute difference "
+              f"a batch (allowed {DECODE_MEAN_ABS_TOL})")
+    host = {"native": [], "cv2": []}
+    for _ in range(DECODE_REPS):
+        for backend in host:
+            got, secs = decode_batches(vp, clip, backend, "stride")
+            host[backend].append(secs * 1e3 / len(got))
+
+    timed_process_video(torch, pipe, clip, "cv2")  # warm
+    runs = {"native": [], "cv2": []}
+    for _ in range(DECODE_REPS):
+        for backend in runs:
+            reset_counts()
+            res, wall = timed_process_video(torch, pipe, clip, backend)
+            if backend == "native":
+                calls, cuda = record_path(results, "decode_native")
+                if calls < 1:
+                    raise AssertionError("process_video at native launched "
+                                         "no segmented_cc_round")
+            check_served_texts(res, f"process_video at {backend}", n_frames)
+            runs[backend].append((res, wall))
+    if [f["frame_number"] for f in runs["native"][0][0]["results"]] != [
+            f["frame_number"] for f in runs["cv2"][0][0]["results"]]:
+        raise AssertionError("native and cv2 process_video: other frames")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    fps = {k: med([n_frames / w for _, w in v]) for k, v in runs.items()}
+    print(f"decode: process_video on the serve clip ({n_frames} frames, "
+          f"trained CRNN pipeline, batch {B}, I420 640x640), median of "
+          f"{DECODE_REPS}: native {fps['native']:.1f} frames/s, cv2 "
+          f"{fps['cv2']:.1f} frames/s; host ms a decoded batch of {B}: "
+          f"native {med(host['native']):.2f}, cv2 {med(host['cv2']):.2f}; "
+          f"segmented_cc_round {calls} calls ({cuda} CUDA launches) on the "
+          f"native path ({card})")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
           "engine", "beam", "serve", "fleet", "train", "parallel",
-          "hostapi", "tp")
+          "hostapi", "tp", "decode")
 
 
 def main(argv=None) -> int:
@@ -3247,6 +3450,7 @@ def main(argv=None) -> int:
         "parallel": lambda: parallel_phase(torch, np, card, results, state),
         "hostapi": lambda: hostapi_phase(torch, np, card, results, state),
         "tp": lambda: tp_phase(torch, np, card, results, state),
+        "decode": lambda: decode_phase(torch, np, card, results, state),
     }
     for name in PHASES:
         if name in phases:

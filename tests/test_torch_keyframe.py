@@ -67,7 +67,8 @@ def test_keyframe_candidates_match_reference(scene_video, max_gap):
               keyframe_max_gap=max_gap)
     want = _collect(RefProcessor().extract_frame_batches(
         scene_video, decode_backend="cv2", **kw))
-    got = _collect(VideoProcessor().extract_frame_batches(scene_video, **kw))
+    got = _collect(VideoProcessor().extract_frame_batches(
+        scene_video, decode_backend="cv2", **kw))
     assert got == want
     kf, dups = got
     serial = [i for _, i, _ in VideoProcessor().extract_frames_at_fps(
@@ -82,14 +83,26 @@ def test_keyframe_candidates_match_reference(scene_video, max_gap):
     assert {0, 20} <= set(kf)  # the first frame and the scene change
 
 
-def test_stride_batches_carry_no_dups_and_native_raises(scene_video):
+def test_stride_batches_carry_no_dups_native_and_cv2(scene_video):
+    """Stride mode ships all 40 candidates and no duplicates at the
+    default backend, with cv2 and with the native decoder (which raises
+    ``ValueError`` where libav is absent, as the reference's does)."""
+    from vtd_tpu_torch.native import video as native_video
     from vtd_tpu_torch.video.processor import VideoProcessor
 
     vp = VideoProcessor()
     kf, dups = _collect(vp.extract_frame_batches(scene_video, batch_size=4))
     assert kf == list(range(40)) and dups == []
-    with pytest.raises(NotImplementedError, match="libav"):
-        next(vp.extract_frame_batches(scene_video, decode_backend="native"))
+    cv = _collect(vp.extract_frame_batches(scene_video, batch_size=4,
+                                           decode_backend="cv2"))
+    assert cv == (kf, dups)
+    native = vp.extract_frame_batches(scene_video, batch_size=4,
+                                      decode_backend="native")
+    if native_video.available():
+        assert _collect(native) == cv
+    else:
+        with pytest.raises(ValueError, match="native decode unavailable"):
+            next(native)
 
 
 @pytest.fixture(scope="module")

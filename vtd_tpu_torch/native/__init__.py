@@ -8,6 +8,12 @@
 ``g++`` or a failed build raises; ``native_available`` says whether the
 library builds and loads. ``ctc_beam_decode_plain`` is the plain Python
 version of the same search, which the tests hold the C++ against.
+
+``video``: the native libav video decoder (``video_decode.cpp``) and its
+in-decoder keyframe gate, built with g++ into the same directory. Where
+libav's headers are absent its ``available()`` is False and callers at
+``decode_backend="auto"`` decode with cv2; where libav is present a
+failed build raises (see ``video.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from . import video  # noqa: F401  re-exported
 
 SRC = Path(__file__).resolve().parent / "ctc_beam.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build"

@@ -209,9 +209,10 @@ class InferenceEngine:
         self, video_paths: List[str], target_fps: float = 10.0
     ) -> Dict[str, Dict[str, Any]]:
         """Process several videos concurrently through this engine: one
-        decoder thread a video (the port's cv2 decode) submits batches in
-        the pipeline's transfer format; results keep each video's frame
-        order. Returns {path: the result dict of ``process_video``}.
+        decoder thread a video (the pipeline's ``decode_backend``) submits
+        batches in the pipeline's transfer format; results keep each
+        video's frame order. Returns {path: the result dict of
+        ``process_video``}.
         Raises ``ImportError`` where cv2 is absent and ``ValueError`` for
         a video that does not open (the reference returns an empty
         success for it)."""

@@ -17,8 +17,9 @@ wait for the device) and the pack lands in pinned host memory behind an
 event.
 
 ``sample_mode="keyframe"`` ships only the scene-change frames that the
-cv2 gate of ``video/processor.py`` keeps and gives each near-duplicate
-candidate its keyframe's detections. Every batch feeds the
+keyframe gate of ``video/processor.py`` keeps (inside the native decoder,
+or cv2's) and gives each near-duplicate candidate its keyframe's
+detections. Every batch feeds the
 ``model_inference_duration_seconds`` / ``model_batch_size`` histograms
 and every transformer chunk ``recognizer_chunk_occupancy``
 (``obs/metrics.py``).

@@ -1,15 +1,17 @@
-"""Host-side video decode and image helpers: the port's copy of the cv2
-decode path of ``vtd_tpu/video/processor.py:VideoProcessor``, and of its
-``letterbox_geometry``, ``ImageProcessor`` and ``AnnotationProcessor``
-(host numpy and cv2, as in the reference).
+"""Host-side video decode and image helpers: the port's copy of
+``vtd_tpu/video/processor.py``'s ``VideoProcessor`` (the native libav
+decoder and the cv2 decode path), ``letterbox_geometry``,
+``ImageProcessor`` and ``AnnotationProcessor`` (host numpy and cv2, as in
+the reference).
 
 ``extract_frame_batches`` yields fixed-size uint8 frame batches (tail
 padded by repeating the last frame, ``valid`` marking real slots),
 decoded in background threads. Frames can be resized on the host and
 shipped I420-packed, and ``sample_mode="keyframe"`` ships only
-scene-change frames through the reference's cv2 gate. ``cv2`` is
-imported inside the functions that need it. The native libav decoder
-(and its in-decoder keyframe gate) waits for a later slice of the port.
+scene-change frames. ``decode_backend="auto"`` (the default) decodes
+with the native decoder (``native/video.py``, the keyframe gate inside
+it) where libav is present and the file opens in it, else with cv2 and
+its Python gate. ``cv2`` is imported inside the functions that need it.
 """
 from __future__ import annotations
 
@@ -149,6 +151,61 @@ class VideoProcessor:
             luma, (64, 36), interpolation=cv2.INTER_AREA
         ).astype(np.int16)
 
+    def _native_candidates(
+        self,
+        video_path: str,
+        target_fps: float,
+        out_size: Tuple[int, int],
+        pixel_format: str,
+        src_range: Optional[Tuple[int, int]] = None,
+        chunk: int = 8,
+        gate: Optional[Tuple[float, int]] = None,
+    ) -> Generator[Tuple[str, Any, Any, Any], None, None]:
+        """The stride candidates whose source frame lies in ``src_range``,
+        from the native decoder, already scaled to ``out_size`` and in
+        ``pixel_format`` (swscale on the codec's own yuv420p planes).
+
+        ``gate`` = (keyframe_diff, keyframe_max_gap) runs the scene-change
+        gate inside the decoder, so a near-duplicate never crosses into
+        Python as pixels. Yields ("frame", frame, candidate_index,
+        timestamp) for a shipped frame and ("dup", candidate_index,
+        timestamp, ref_candidate_index) for a gated duplicate, in source
+        order within each kind (the consumer's dups list is order-free).
+        """
+        from ..native import video as native_video
+
+        reader = native_video.open_video(video_path, out_size, pixel_format)
+        if reader is None:
+            raise RuntimeError("native video decoder unavailable")
+        try:
+            fps = reader.fps
+            interval = max(1, int(fps / target_fps)) if fps > 0 else 1
+            start, end = src_range if src_range else (0, None)
+            if start:
+                reader.seek(start)
+            src_end = -1 if end is None else int(end)
+            while True:
+                if gate is None:
+                    frames, idx = reader.read_batch(interval, chunk, src_end)
+                    dup_idx = dup_ref = idx[:0]
+                else:
+                    frames, idx, dup_idx, dup_ref = reader.read_batch_kf(
+                        interval, chunk, src_end,
+                        kf_diff=gate[0], kf_max_gap=gate[1],
+                    )
+                if len(frames) == 0 and len(dup_idx) == 0:
+                    return
+                for k in range(len(frames)):
+                    src = int(idx[k])
+                    ts = src / fps if fps > 0 else 0.0
+                    yield "frame", frames[k], src // interval, ts
+                for k in range(len(dup_idx)):
+                    src, ref = int(dup_idx[k]), int(dup_ref[k])
+                    ts = src / fps if fps > 0 else 0.0
+                    yield "dup", src // interval, ts, ref // interval
+        finally:
+            reader.close()
+
     def extract_frame_batches(
         self,
         video_path: str,
@@ -168,8 +225,17 @@ class VideoProcessor:
         'dups'} batches of exactly ``batch_size`` frames.
 
         ``resize_to``: an int (square) or (w, h) host-side resize;
-        ``decode_workers`` > 1 decodes contiguous segments concurrently.
-        ``decode_backend`` 'auto' and 'cv2' both decode with cv2 here.
+        ``decode_workers`` > 1 decodes contiguous segments concurrently
+        (the native reader reaches its segment through ``seek``).
+
+        ``decode_backend``: 'native' decodes with the libav decoder
+        (``native/video.py``: scale and pixel conversion in swscale on the
+        codec's own planes) and raises ``ValueError`` where it cannot open
+        the file; 'cv2' with ``cv2.VideoCapture``; 'auto' (default) takes
+        native where it opens the file, else cv2. Where libav is present
+        but the decoder does not build, 'auto' and 'native' raise
+        ``RuntimeError``. Native I420 frames have even dims (an odd size
+        is rounded down); ``orig_size`` is the source's.
 
         ``sample_mode``: 'stride' ships every stride candidate; 'keyframe'
         ships only scene-change keyframes: a candidate whose 64x36
@@ -180,11 +246,6 @@ class VideoProcessor:
         ref_frame_number)`` instead. A trailing dup-only batch has
         ``frames=None``.
         """
-        if decode_backend not in ("auto", "cv2"):
-            raise NotImplementedError(
-                "the native libav decoder waits for a later slice of the "
-                "port; use decode_backend='cv2' or 'auto'"
-            )
         import cv2
 
         q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
@@ -195,6 +256,24 @@ class VideoProcessor:
             else (resize_to, resize_to) if isinstance(resize_to, int)
             else (int(resize_to[0]), int(resize_to[1]))
         )
+        # backend: native needs a probe that opens the file; 'auto' falls
+        # back to cv2 where libav is absent or the file defeats the reader
+        use_native = False
+        if decode_backend in ("auto", "native"):
+            from ..native import video as native_video
+
+            probe = native_video.open_video(video_path, (16, 16), "yuv420")
+            if probe is not None:
+                use_native = True
+                src_w, src_h = probe.src_w, probe.src_h
+                probe.close()
+                out_size = resize_wh or (src_w, src_h)
+                if pixel_format == "yuv420":
+                    # the reader rounds I420 dims down to even likewise
+                    out_size = (out_size[0] & ~1, out_size[1] & ~1)
+                native_orig = (src_h, src_w)
+            elif decode_backend == "native":
+                raise ValueError(f"native decode unavailable for {video_path}")
 
         class _Stopped(Exception):
             pass
@@ -258,6 +337,32 @@ class VideoProcessor:
                 buf_ts.clear()
                 buf_dups.clear()
 
+            def append(frame, idx, ts):
+                buf_frames.append(frame)
+                buf_nums.append(idx)
+                buf_ts.append(ts)
+                if len(buf_frames) == batch_size:
+                    flush()
+
+            if use_native:
+                # in keyframe mode the gate runs inside the decoder, and
+                # duplicates arrive as (index, ts, ref) records only
+                for item in self._native_candidates(
+                    video_path, target_fps, out_size, pixel_format,
+                    src_range, chunk=batch_size,
+                    gate=((keyframe_diff, max_gap)
+                          if sample_mode == "keyframe" else None),
+                ):
+                    if stop.is_set():
+                        return
+                    if item[0] == "dup":
+                        buf_dups.append(item[1:])
+                        continue
+                    if not orig_size:
+                        orig_size.append(native_orig)
+                    append(*item[1:])
+                flush()
+                return
             last_sig: Optional[np.ndarray] = None
             last_kf = -1
             since_kf = 0
@@ -286,11 +391,7 @@ class VideoProcessor:
                     )
                 if pixel_format == "yuv420":
                     frame = cv2.cvtColor(frame, cv2.COLOR_BGR2YUV_I420)
-                buf_frames.append(frame)
-                buf_nums.append(idx)
-                buf_ts.append(ts)
-                if len(buf_frames) == batch_size:
-                    flush()
+                append(frame, idx, ts)
             flush()
 
         def coordinator():
