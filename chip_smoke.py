@@ -156,8 +156,26 @@ any error:
              counted on the native path); without libav, show that
              ``available()`` is False, ``decode_backend="native"`` raises
              ``ValueError`` and 'auto' gives cv2's batches byte for byte,
-             and count the kernel on ``process_video`` at 'auto'.
-Last come one JSON line describing every kernel and the device line.
+             and count the kernel on ``process_video`` at 'auto';
+  bench      ``python -m vtd_tpu_torch.bench --all`` in a subprocess, as a
+             user runs it: the five BASELINE.json
+             configs and the device-resident config 3, one JSON line
+             each, every line with its metric name, a value above 0, no
+             error, the card's name and power limit and the kernels'
+             counts in that config;
+  profile    ``vtd_tpu_torch.tools.profile_device`` at batch 16 with the
+             trained checkpoints: device ms (kernels summed from
+             ``torch.profiler``), wall ms and idle share of each of its
+             nine stages, the kernels counted over its wall passes;
+  examples   ``vtd_tpu_torch.examples.verify_checkpoints`` (must print
+             ``VERIFY PASS``: HELLO / WORLD / 123 and nothing else on the
+             CRNN and the TrOCR path), ``train_and_verify --quick`` (its
+             report printed) and ``tools.eval_trocr_ckpt`` on
+             ``demo_models2/trocr_r5/trocr_final`` (must read 32/32, as
+             ``demo_models2/report.json`` records), each in this process
+             with the kernels counted around it.
+Each phase prints its time, and the script its whole time. Last come one
+JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
 parent commit unpacked with ``git archive``) beside this one's, in turns,
@@ -168,8 +186,10 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
+import io
 import json
 import subprocess
 import sys
@@ -3388,9 +3408,138 @@ def run_decode(torch, np, card, results, pipe, tmp):
           f"native path ({card})")
 
 
+BENCH_METRICS = {
+    "3": "e2e_720p_ocr_frames_per_sec_per_chip",
+    "3dr": "e2e_720p_ocr_fps_device_resident",
+    "5": "multistream_aggregate_fps",
+    "4": "e2e_1080p_keyframe_ocr_fps",
+    "1": "dbnet_single_frame_detect_fps",
+    "2": "crnn_ctc_crops_per_sec",
+}
+BENCH_TIMEOUT_S = 700.0
+PROFILE_ITERS = 10
+TROCR_HELDOUT_CKPT = "demo_models2/trocr_r5/trocr_final"
+
+
+def bench_phase(card, results):
+    """The port's bench in a subprocess, as a user runs it; every line
+    checked, the kernels' counts of each config into the kernels line."""
+    print("bench: python -m vtd_tpu_torch.bench --all", flush=True)
+    res = subprocess.run(
+        [sys.executable, "-m", "vtd_tpu_torch.bench", "--all"],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = {}
+    for ln in res.stdout.splitlines():
+        print(ln)
+        if ln.startswith("{"):
+            rec = json.loads(ln)
+            lines[rec["metric"]] = rec
+    if res.returncode != 0:
+        raise AssertionError(f"bench exited {res.returncode}:\n"
+                             f"{res.stderr[-3000:]}")
+    name, limit = (part.strip() for part in card.split(",", 1))
+    for spec, metric in BENCH_METRICS.items():
+        rec = lines.get(metric)
+        if rec is None or "error" in rec or not rec["value"] > 0:
+            raise AssertionError(f"bench config {spec}: {rec}")
+        if (rec["card_name"], rec["power_limit"]) != (name, limit):
+            raise AssertionError(f"bench config {spec} names another card: "
+                                 f"{rec['card_name']}, {rec['power_limit']}")
+        calls = rec["segmented_cc_round_calls"]
+        if spec != "2" and calls < 1:
+            raise AssertionError(f"bench config {spec} launched no "
+                                 "segmented_cc_round")
+        record_launches(results, "segmented_cc_round",
+                        f"launches_bench_{spec}", calls)
+        record_launches(results, "segmented_cc_round",
+                        f"cuda_launches_bench_{spec}",
+                        rec["segmented_cc_round_cuda_launches"])
+        record_launches(results, "neighbor_min_sweeps",
+                        f"launches_bench_{spec}",
+                        rec["neighbor_min_sweeps_calls"])
+    print(f"bench: {len(BENCH_METRICS)} lines under their metric names, each with a "
+          f"value above 0, no error and {card}")
+
+
+def profile_phase(card, results):
+    """``profile_device`` at batch 16 on the trained checkpoints."""
+    from vtd_tpu_torch.tools.profile_device import (
+        STAGES, profile_stages, report,
+    )
+
+    reset_counts()
+    res = profile_stages(batch=B, iters=PROFILE_ITERS)
+    record_path(results, "profile")
+    print(report(res, B, PROFILE_ITERS, card))
+    if list(res["stages"]) != list(STAGES):
+        raise AssertionError(f"profile stages {list(res['stages'])}")
+    for name, st in res["stages"].items():
+        if not (st["device_ms"] and st["device_ms"] > 0 and st["wall_ms"] > 0):
+            raise AssertionError(f"profile stage {name}: {st}")
+    if res["counts"]["segmented_cc_round_calls"] < 1:
+        raise AssertionError("profile launched no segmented_cc_round")
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and passes it on to the real stdout."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def run_printing(fn, *args):
+    """``fn(*args)`` with its stdout shown and kept -> (result, text)."""
+    out = _Tee()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    sys.__stdout__.flush()
+    return result, out.getvalue()
+
+
+def examples_phase(card, results):
+    """The port's examples and the TrOCR scorer, each in this process with
+    the kernels counted around it."""
+    import tempfile
+
+    from vtd_tpu_torch.examples import train_and_verify, verify_checkpoints
+    from vtd_tpu_torch.tools import eval_trocr_ckpt
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, text = run_printing(verify_checkpoints.main, [])
+    calls, cuda = record_path(results, "verify_checkpoints")
+    if rc != 0 or "VERIFY PASS" not in text or text.count('"clean": true') != 2:
+        raise AssertionError("verify_checkpoints did not pass on both engines")
+    print(f"verify_checkpoints: VERIFY PASS on the CRNN and the TrOCR path in "
+          f"{time.perf_counter() - t0:.1f} s; segmented_cc_round {calls} "
+          f"calls ({cuda} CUDA launches) ({card})")
+
+    with tempfile.TemporaryDirectory(prefix="vtd_tav_") as out:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text = run_printing(train_and_verify.main,
+                                ["--quick", "--out", out])
+        calls, cuda = record_path(results, "train_and_verify")
+        if rc != 0 or "REPORT WRITTEN" not in text:
+            raise AssertionError("train_and_verify --quick did not finish")
+    print(f"train_and_verify --quick: {time.perf_counter() - t0:.1f} s; "
+          f"segmented_cc_round {calls} calls ({cuda} CUDA launches) ({card})")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    score = eval_trocr_ckpt.evaluate(TROCR_HELDOUT_CKPT)
+    record_path(results, "eval_trocr_ckpt")
+    print(json.dumps(score))
+    if score["heldout_exact_match_random8"] != "32/32":
+        raise AssertionError(f"eval_trocr_ckpt read {score}")
+    print(f"eval_trocr_ckpt: 32/32 in {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
           "engine", "beam", "serve", "fleet", "train", "parallel",
-          "hostapi", "tp", "decode")
+          "hostapi", "tp", "decode", "bench", "profile", "examples")
 
 
 def main(argv=None) -> int:
@@ -3424,7 +3573,7 @@ def main(argv=None) -> int:
     from vtd_tpu_torch._build import build_all
 
     card = card_line()
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     logs = build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -3451,6 +3600,9 @@ def main(argv=None) -> int:
         "hostapi": lambda: hostapi_phase(torch, np, card, results, state),
         "tp": lambda: tp_phase(torch, np, card, results, state),
         "decode": lambda: decode_phase(torch, np, card, results, state),
+        "bench": lambda: bench_phase(card, results),
+        "profile": lambda: profile_phase(card, results),
+        "examples": lambda: examples_phase(card, results),
     }
     for name in PHASES:
         if name in phases:
@@ -3461,6 +3613,7 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"script: {time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

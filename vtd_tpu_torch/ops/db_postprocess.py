@@ -151,6 +151,7 @@ def db_postprocess(
     max_box_frac: float = 0.95,
     num_angles: int = 45,
     refine_steps: int = 9,
+    cc_iters: int = 8,
     work_stride: int = 2,
     stage: str = "full",
     cc_exact: bool = False,
@@ -162,7 +163,10 @@ def db_postprocess(
       boxes [B,K,4] (x1,y1,x2,y2), polygons [B,K,4,2], scores [B,K],
       areas [B,K], valid [B,K] bool, and xmin/xmax/ymin/ymax [B,K].
 
-    ``stage`` cuts the work short for profiling, returning what the
+    ``cc_iters`` goes to ``connected_components(dense_iters=...)``, as in
+    the reference; its default "auto" backend takes no sweeps, so the
+    value changes nothing there. ``stage`` cuts the work short for
+    profiling, returning what the
     reference returns there, batched: ``"cc"`` {labels [B, n]},
     ``"topk"`` {roots, areas, valid [B, K]}, ``"boundary"`` {xs, ys,
     pmask [B, K, M], valid}.
@@ -184,7 +188,9 @@ def db_postprocess(
         .any(4)
         .any(2)
     )
-    labels = connected_components(binary, exact=cc_exact)  # [B, n]
+    labels = connected_components(
+        binary, dense_iters=cc_iters, exact=cc_exact
+    )  # [B, n]
     if stage == "cc":
         return {"labels": labels}
 

@@ -18,20 +18,27 @@ def preprocess_frames(
     frames: torch.Tensor,
     out_size: int = 640,
     dtype: torch.dtype = torch.bfloat16,
+    bgr_to_rgb: bool = True,
+    antialias: bool = True,
 ) -> torch.Tensor:
-    """uint8 [B, H, W, 3] BGR -> normalised RGB [B, S, S, 3] in ``dtype``.
+    """uint8 [B, H, W, 3] BGR -> normalised RGB [B, S, S, 3] in ``dtype``
+    (``bgr_to_rgb=False`` leaves the channel order as given).
 
-    Bilinear resize with antialiasing and half-pixel centres (what
-    ``jax.image.resize(method="bilinear", antialias=True)`` computes),
-    /255, ImageNet normalisation. The result is an NHWC view of NCHW
+    Bilinear resize with half-pixel centres, /255, ImageNet
+    normalisation. With ``antialias`` a downscale widens the filter to
+    the scale (what ``jax.image.resize(method="bilinear",
+    antialias=True)`` computes); without it every output pixel is the
+    plain 2-tap bilinear mix of its four nearest inputs, as
+    ``antialias=False`` there. The result is an NHWC view of NCHW
     memory, so ``.permute(0, 3, 1, 2)`` hands the model a contiguous
     NCHW tensor without a copy.
     """
     x = frames.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-    x = x.flip(1)  # BGR -> RGB
+    if bgr_to_rgb:
+        x = x.flip(1)
     x = F.interpolate(
         x, size=(out_size, out_size), mode="bilinear",
-        align_corners=False, antialias=True,
+        align_corners=False, antialias=antialias,
     )
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)

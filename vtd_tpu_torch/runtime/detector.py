@@ -127,7 +127,9 @@ class TextDetector:
             [cv2.cvtColor(f, cv2.COLOR_BGR2YUV_I420) for f in frames]
         )
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+    def _upload(self, frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor):  # staged on the device already
+            return frames.to(self.device)
         return torch.from_numpy(
             np.ascontiguousarray(self._ship(frames))
         ).to(self.device)
@@ -136,7 +138,8 @@ class TextDetector:
     def detect_batch_arrays(
         self, frames: np.ndarray, confidence_threshold: float = 0.5
     ) -> Dict[str, torch.Tensor]:
-        """[B,H,W,3] uint8 -> fixed-size result tensors on the device."""
+        """[B,H,W,3] uint8 (numpy, or a tensor staged on the device) ->
+        fixed-size result tensors on the device."""
         prob = self.probability(self._upload(frames))
         return db_postprocess(
             prob, confidence_threshold, max_dets=self.max_dets,

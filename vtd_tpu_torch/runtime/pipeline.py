@@ -194,9 +194,12 @@ def recognize_pack(
     return torch.cat([det_bytes, ids.reshape(b, k, -1).to(torch.uint8)], -1)
 
 
-def upload(frames: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload(frames, device: torch.device) -> torch.Tensor:
     """Host frames onto ``device``: on the card from pinned memory,
-    ``non_blocking`` on the current stream."""
+    ``non_blocking`` on the current stream. Frames already in a tensor
+    (staged on the device beforehand) are taken as they are."""
+    if isinstance(frames, torch.Tensor):
+        return frames.to(device)
     host = torch.from_numpy(np.ascontiguousarray(frames))
     if device.type != "cuda":
         return host.to(device)
@@ -717,6 +720,7 @@ class VideoTextPipeline:
         """Enqueue the device program for one fixed-size frame batch and
         return opaque handles for :meth:`process_batch`. Dispatch batch
         k+1 before collecting batch k to overlap host and device work.
+        ``frames``: host frames, or a uint8 tensor staged on the device.
         ``valid_frames``: [B] bool marking real (non-padding) frames."""
         return self._dispatch_batch(
             frames, confidence_threshold=confidence_threshold,

@@ -15,12 +15,13 @@ its Python gate. ``cv2`` is imported inside the functions that need it.
 """
 from __future__ import annotations
 
+import asyncio
 import logging
 import queue
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, Generator, List, Optional, Tuple
+from typing import Any, AsyncGenerator, Dict, Generator, List, Optional, Tuple
 
 import numpy as np
 
@@ -73,6 +74,21 @@ class VideoProcessor:
         """Yield (frame, extracted_index, timestamp): every
         ``max(1, int(src_fps / target_fps))``-th decoded frame."""
         yield from self._segment_candidates(video_path, target_fps)
+
+    async def extract_frames_generator(
+        self, video_path: str, target_fps: float = 10
+    ) -> AsyncGenerator[Tuple[np.ndarray, int, float], None]:
+        """:meth:`extract_frames_at_fps` as an async generator: each frame
+        is decoded in the loop's default executor."""
+        gen = self.extract_frames_at_fps(video_path, target_fps)
+        loop = asyncio.get_event_loop()
+        sentinel = object()
+        while True:
+            item = await loop.run_in_executor(None, next, gen, sentinel)
+            if item is sentinel:
+                return
+            yield item
+            await asyncio.sleep(0)
 
     def extract_single_frame(
         self, video_path: str, frame_number: int
