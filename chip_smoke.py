@@ -173,7 +173,16 @@ any error:
              report printed) and ``tools.eval_trocr_ckpt`` on
              ``demo_models2/trocr_r5/trocr_final`` (must read 32/32, as
              ``demo_models2/report.json`` records), each in this process
-             with the kernels counted around it.
+             with the kernels counted around it;
+  report     ``vtd_tpu_torch.tools.update_report`` into a temporary
+             ``--out`` (``e2e`` and ``e2e_transformer`` must equal
+             ``demo_models2/report.json``'s key for key, ``avg_det_conf``
+             within 0.001, every other section untouched), then
+             ``tools.r5_promote demo_models2/trocr_r5`` (``trocr_final``
+             at 32/32), with ``--promote --dest`` into a temporary
+             directory (rc 0; the copy loads and reads 32/32 again) and
+             with ``--incumbent-score 32`` (rc 3, nothing copied), the
+             kernels counted around each tool.
 Each phase prints its time, and the script its whole time. Last come one
 JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
@@ -3537,9 +3546,98 @@ def examples_phase(card, results):
           f"({card})")
 
 
+REPORT = "demo_models2/report.json"
+R5_DIR = "demo_models2/trocr_r5"
+REPORT_CONF_TOL = 0.001  # avg_det_conf is kept to 3 decimals
+
+
+def same_section(got: dict, want: dict, label: str) -> None:
+    """A report section key for key, ``avg_det_conf`` within
+    REPORT_CONF_TOL."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label} keys {sorted(got)} != {sorted(want)}")
+    for key, value in want.items():
+        ok = (abs(got[key] - value) <= REPORT_CONF_TOL
+              if key == "avg_det_conf" else got[key] == value)
+        if not ok:
+            raise AssertionError(f"{label}.{key}: {got[key]!r} != {value!r}")
+
+
+def report_phase(card, results):
+    """``update_report`` and ``r5_promote`` on the card, each in this
+    process with the kernels counted around it."""
+    import math
+    import os
+    import tempfile
+
+    from vtd_tpu_torch.runtime.trocr_runtime import TransformerRecognizer
+    from vtd_tpu_torch.tools import r5_promote, update_report
+    from vtd_tpu_torch.tools.eval_trocr_ckpt import evaluate
+
+    with open(REPORT) as f:
+        want = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="vtd_report_") as tmp:
+        out = os.path.join(tmp, "report.json")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text = run_printing(update_report.main, ["--out", out])
+        calls, cuda = record_path(results, "update_report")
+        secs = time.perf_counter() - t0
+        if rc != 0 or "REPORT UPDATED" not in text:
+            raise AssertionError("update_report did not finish")
+        if text.splitlines()[0] != f"device: {card}":
+            raise AssertionError(f"update_report names {text.splitlines()[0]}")
+        with open(out) as f:
+            got = json.load(f)
+        if set(got) != set(want):
+            raise AssertionError(f"update_report sections {sorted(got)}")
+        for name in want:
+            if name in ("e2e", "e2e_transformer"):
+                same_section(got[name], want[name], name)
+            elif got[name] != want[name]:
+                raise AssertionError(f"update_report changed {name}")
+        batches = sum(math.ceil(got[name]["frames"] / 8)
+                      for name in ("e2e", "e2e_transformer"))
+        if calls < batches:
+            raise AssertionError(f"update_report: {calls} segmented_cc_round "
+                                 f"calls over {batches} batches")
+        print(f"update_report: e2e and e2e_transformer as {REPORT} (avg_det_conf "
+              f"{got['e2e']['avg_det_conf']} within {REPORT_CONF_TOL}), trocr "
+              f"untouched, in {secs:.1f} s; segmented_cc_round {calls} calls "
+              f"({cuda} CUDA launches) over {batches} batches, "
+              f"{calls / batches:g} = {cuda / batches:g} a batch ({card})")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text = run_printing(r5_promote.main, [R5_DIR])
+        if rc != 0 or f"{R5_DIR}/trocr_final: 32/32" not in text:
+            raise AssertionError(f"r5_promote gave {rc}")
+        dest = os.path.join(tmp, "promoted", "text_recognizer_trocr")
+        rc, text = run_printing(r5_promote.main,
+                                [R5_DIR, "--promote", "--dest", dest])
+        if rc != 0 or not os.path.isdir(dest):
+            raise AssertionError(f"r5_promote --promote gave {rc}")
+        TransformerRecognizer(model_path=dest)
+        score = evaluate(dest, dest + "_config.json")
+        if score["heldout_exact_match_random8"] != "32/32":
+            raise AssertionError(f"the promoted copy read {score}")
+        kept = os.path.join(tmp, "kept", "text_recognizer_trocr")
+        rc, text = run_printing(
+            r5_promote.main,
+            [R5_DIR, "--promote", "--incumbent-score", "32", "--dest", kept])
+        if rc != 3 or os.path.exists(kept):
+            raise AssertionError(f"r5_promote --incumbent-score 32 gave {rc}")
+        calls, cuda = record_path(results, "r5_promote")
+    print(f"r5_promote: trocr_final 32/32, promoted copy loads and reads "
+          f"32/32, --incumbent-score 32 exits 3, in "
+          f"{time.perf_counter() - t0:.1f} s; segmented_cc_round {calls} "
+          f"calls ({cuda} CUDA launches) ({card})")
+
+
 PHASES = ("segmented", "sweeps", "dense", "crnn", "trocr", "trained",
           "engine", "beam", "serve", "fleet", "train", "parallel",
-          "hostapi", "tp", "decode", "bench", "profile", "examples")
+          "hostapi", "tp", "decode", "bench", "profile", "examples",
+          "report")
 
 
 def main(argv=None) -> int:
@@ -3603,6 +3701,7 @@ def main(argv=None) -> int:
         "bench": lambda: bench_phase(card, results),
         "profile": lambda: profile_phase(card, results),
         "examples": lambda: examples_phase(card, results),
+        "report": lambda: report_phase(card, results),
     }
     for name in PHASES:
         if name in phases:

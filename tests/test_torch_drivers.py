@@ -3,7 +3,10 @@ and the API it lacked against ``vtd_tpu``.
 
 ``verify_checkpoints`` on the CRNN path must reproduce the ``e2e`` record
 of ``demo_models2/report.json`` (the JAX package's reading of the same
-clip with the same settings) and ``eval_trocr_ckpt`` its held-out score;
+clip with the same settings), ``update_report`` both engines' records
+(``e2e``, ``e2e_transformer``: the whole report, since it is given no
+training log; the CRNN run is shared with ``verify_checkpoints``'s) and
+``eval_trocr_ckpt`` its held-out score;
 the held-out crops it stores must be the reference's slice;
 ``profile_device`` must report its nine stages on the CPU, its
 ``post_full`` equal to ``db_postprocess`` called directly. The API:
@@ -28,6 +31,7 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = os.path.join(REPO, "demo_models2", "dbnet", "best_bf16")
 CRNN = os.path.join(REPO, "demo_models2", "crnn", "crnn_final")
+TROCR = os.path.join(REPO, "models", "text_recognizer_trocr")
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +51,27 @@ def test_verify_clip_is_the_shipped_frame():
         np.testing.assert_array_equal(f, want)
 
 
-def test_verify_checkpoints_crnn_reproduces_report(report):
+@pytest.fixture(scope="module")
+def clip_runs():
+    """``verify_checkpoints.run_clip`` remembered for this module: the
+    verify clip goes through each engine once on the CPU, and
+    ``verify`` and ``update_report`` read the same run. Yields the runs
+    made, by their arguments."""
+    from vtd_tpu_torch.examples import verify_checkpoints
+
+    real, runs = verify_checkpoints.run_clip, {}
+
+    def run_clip(*args):
+        if args not in runs:
+            runs[args] = real(*args)
+        return runs[args]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(verify_checkpoints, "run_clip", run_clip)
+        yield runs
+
+
+def test_verify_checkpoints_crnn_reproduces_report(report, clip_runs):
     from vtd_tpu_torch.examples.verify_checkpoints import verify
 
     got = verify(DET, CRNN, use_transformer=False, device="cpu")
@@ -59,6 +83,22 @@ def test_verify_checkpoints_crnn_reproduces_report(report):
     assert got["exact_matches"] == want["exact_matches"] == 3
     assert got["clean"] is want["clean"] is True
     assert got["engine"] == "crnn"
+
+
+def test_update_report_reproduces_report(report, clip_runs, tmp_path):
+    from vtd_tpu_torch.tools import update_report
+
+    out = tmp_path / "report.json"
+    assert update_report.main(["--detector", DET, "--crnn", CRNN,
+                               "--trocr", TROCR, "--out", str(out),
+                               "--device", "cpu"]) == 0
+    got = json.loads(out.read_text())
+    # the JAX package's tool wrote both sections; the trocr section and
+    # the training ones are untouched without --trocr-log
+    assert got == report
+    assert got["e2e"]["avg_det_conf"] == 0.95
+    assert (DET, CRNN, False, "cpu") in clip_runs
+    assert (DET, TROCR, True, "cpu") in clip_runs
 
 
 def test_eval_trocr_ckpt_scores_as_report(report):
