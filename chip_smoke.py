@@ -14,13 +14,18 @@ any error:
              tallest map the plan takes), check the whole labelling
              schedule against the CPU, then time the kernel on the device
              (a CUDA graph of rounds), the wrapper on the host, and the
-             plain version;
+             plain version; then the reference's single-map rank: a 2-D
+             [320, 320] call equal to row 0 of the batched call and to
+             the plain version, counted (1 call = 2 CUDA launches, 4 with
+             diag), its host time beside a [1, 320, 320] call's;
   sweeps     the same for ``neighbor_min_sweeps`` (iters 1/4/8/65 on
              noise, staircase, banners, empty, full, border, B=1, maps
              that are no multiple of the tile, 1x1, 1x300, 300x1, 7x1000,
              a halo past the map; an empty batch), then its time per call
              in a loop of calls (``ms``), its device time (a CUDA graph of
-             calls), its host time per call and the plain version's;
+             calls), its host time per call and the plain version's; the
+             same single-map check as ``segmented`` (1 call =
+             ``sweep_plan(320, 320, 8).launches`` CUDA launches);
   dense      the dense labelling path, ``connected_components(
              backend="pallas")``, on the card against the CPU, with its
              4 wrapper calls and CUDA launches counted, its time per call
@@ -47,7 +52,11 @@ any error:
              ``make_batch`` frames) and one frame by frame through
              ``submit_frame``; every Future equals ``process_batch`` on
              the same frames; aggregate frames/s and batches dispatched;
-  beam       build the C++ CTC prefix beam with g++, hold it against the
+  beam       build the C++ CTC prefix beam with g++, build it again with
+             ``build(force=True)`` (the seconds g++ takes; a fresh process
+             decodes with the rebuilt library as the plain beam does) and
+             call ``native.video.build(force=True)``, which raises where
+             libav is absent, as on the card's machine; hold it against the
              plain Python beam on the trained CRNN's log-probs of the
              ``trained`` batch and on seeded random log-probs (sequences
              equal, scores within 1e-4), and time it;
@@ -122,7 +131,10 @@ any error:
              an orbax directory, the app ``.pth`` and the port's file;
              ``extract_single_frame`` on the serve clip into
              ``process_single_frame`` on the trained CRNN pipeline (HELLO /
-             WORLD / 123, both kernels counted); ``VideoResult`` rebuilt
+             WORLD / 123, both kernels counted); ``db_postprocess`` and
+             ``crop_and_resize_boxes_mm`` on one trained map (one image)
+             against row 0 of the batched call, the kernels counted on the
+             one-map call; ``VideoResult`` rebuilt
              from a ``process_video`` result; ``start_metrics_server``
              serving the port's registry;
   tp         the mesh's model axis, on the trained checkpoints at config
@@ -188,7 +200,8 @@ JSON line describing every kernel and the device line.
 ``--phases a,b`` runs a subset while working on one phase. ``--baseline
 DIR`` times another checkout's ``neighbor_min_sweeps`` (for example the
 parent commit unpacked with ``git archive``) beside this one's, in turns,
-in the sweeps and dense phases.
+in the sweeps and dense phases, and both wrappers' host time per batched
+call beside this one's in the single-map checks.
 
 Exits non-zero, printing no result, when CUDA is unavailable. Imports
 nothing of JAX.
@@ -327,7 +340,75 @@ def tall_height(plan_of, w: int) -> int:
     return lo
 
 
-def segmented_phase(torch, np, results):
+def one_map_check(torch, np, results, kernel, plain, arg, cuda_per_call,
+                  card, baseline=None):
+    """The reference's single-map rank on the card: a 2-D [MAP, MAP] call
+    of ``kernel`` equals row 0 of the [B, MAP, MAP] call and the plain
+    version on the same map, label for label; it is one wrapper call of
+    ``cuda_per_call`` CUDA launches; its host time per call beside a
+    [1, MAP, MAP] call's, in turns (2-D, batch of one, batch of one,
+    2-D). With ``baseline`` (another checkout's package) that checkout's
+    wrapper is timed beside this one's on the [1, MAP, MAP] and
+    [B, MAP, MAP] batches, in turns (this, baseline, baseline, this)."""
+    name = kernel.__name__
+    rng = np.random.default_rng(16)
+    maps = torch.from_numpy(rng.random((B, MAP, MAP)) < 0.5).cuda()
+    lbl = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        rng.permutation(MAP * MAP).astype(np.int32).reshape(1, MAP, MAP),
+        (B, MAP, MAP)))).cuda()
+    batch = kernel(maps, lbl, arg)
+    before = kernel.launches, kernel.cuda_launches
+    one = kernel(maps[0], lbl[0], arg)
+    calls = kernel.launches - before[0]
+    cuda = kernel.cuda_launches - before[1]
+    want = plain(maps[0], lbl[0], arg)
+    torch.cuda.synchronize()
+    if one.shape != (MAP, MAP) or one.dtype != torch.int32:
+        raise AssertionError(f"{name} on one map gave {one.shape} {one.dtype}")
+    for other, what in ((batch[0], "row 0 of the batched call"),
+                        (want, "its plain version")):
+        diff = int((one != other).sum())
+        if diff:
+            raise AssertionError(
+                f"{name}({arg}) on one map differs from {what}: {diff} labels")
+    if (calls, cuda) != (1, cuda_per_call):
+        raise AssertionError(
+            f"{name} on one map: {calls} wrapper calls = {cuda} CUDA "
+            f"launches, expected 1 = {cuda_per_call}")
+    fg1, lbl1 = maps[:1], lbl[:1]
+    fg2, lbl2 = maps[0], lbl[0]
+    reads = {"2d": [], "b1": []}
+    for who in ("2d", "b1", "b1", "2d"):
+        fg, lb = (fg2, lbl2) if who == "2d" else (fg1, lbl1)
+        reads[who].append(host_us(torch, lambda: kernel(fg, lb, arg)))
+    us = {k: sum(v) / len(v) for k, v in reads.items()}
+    if baseline is not None:
+        old = getattr(importlib.import_module("vtd_baseline.ops.cc_kernels"),
+                      name)
+        for size, (fg, lb) in (("1", (fg1, lbl1)), (str(B), (maps, lbl))):
+            pair = {"this": [], "baseline": []}
+            for who in ("this", "baseline", "baseline", "this"):
+                fn = kernel if who == "this" else old
+                pair[who].append(host_us(torch, lambda: fn(fg, lb, arg)))
+            print(f"baseline {baseline}: {name}({arg}) host time per "
+                  f"[{size}x{MAP}x{MAP}] call, this tree "
+                  f"{'/'.join(f'{x:.3f}' for x in pair['this'])} us, the "
+                  f"baseline {'/'.join(f'{x:.3f}' for x in pair['baseline'])}"
+                  f" us ({card})")
+            us[f"this_b{size}"] = sum(pair["this"]) / 2
+            us[f"baseline_b{size}"] = sum(pair["baseline"]) / 2
+    print(f"one map: {name}({arg}) on [{MAP}x{MAP}] equals row 0 of the "
+          f"[{B}x{MAP}x{MAP}] call and its plain version label for label, "
+          f"1 wrapper call = {cuda} CUDA launches; host time per call 2-D "
+          f"{'/'.join(f'{x:.3f}' for x in reads['2d'])} us, [1x{MAP}x{MAP}] "
+          f"{'/'.join(f'{x:.3f}' for x in reads['b1'])} us, so the rank "
+          f"handling costs {us['2d'] - us['b1']:.3f} us a call ({card})")
+    results[name].setdefault("one_map", {})[str(arg)] = {
+        "calls": calls, "cuda_launches": cuda, "host_us_2d": us.pop("2d"),
+        "host_us_batch_of_one": us.pop("b1"), **us}
+
+
+def segmented_phase(torch, np, results, card, baseline=None):
     """segmented_cc_round against its plain version on the card, label for
     label, on the main path's shape and on every edge of the launch plan
     (batch of one, partial strips, short and single-cell lines, the
@@ -473,6 +554,10 @@ def segmented_phase(torch, np, results):
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
     }
+    for diag in (False, True):
+        one_map_check(torch, np, results, segmented_cc_round,
+                      segmented_cc_round_plain, diag, 4 if diag else 2, card,
+                      baseline)
 
 
 def load_baseline(path: str):
@@ -503,7 +588,7 @@ def sweeps_times(torch, ops, fg, lbl, iters):
             "host_us": host_us(torch, kern)}
 
 
-def sweeps_phase(torch, np, results, baseline=None):
+def sweeps_phase(torch, np, results, card, baseline=None):
     """neighbor_min_sweeps against its plain version on the card, label
     for label, on the main path's shape and on every edge of its launch
     plan (batch of one, partial tiles, 1x1, 1xN, Nx1, a halo past the map,
@@ -644,6 +729,9 @@ def sweeps_phase(torch, np, results, baseline=None):
             k: sum(r[k] for r in reads["base"]) / len(reads["base"])
             for k in mean}}),
     }
+    one_map_check(torch, np, results, neighbor_min_sweeps,
+                  neighbor_min_sweeps_plain, iters, plan.launches, card,
+                  baseline)
 
 
 def dense_phase(torch, np, results, baseline=None):
@@ -1331,6 +1419,63 @@ def engine_phase(torch, np, card, results, state):
           f"frames/s (trained CRNN, bf16, {card})")
 
 
+# a fresh process loads the library build(force=True) rewrote and holds
+# its beam against the plain beam
+REBUILT_BEAM_CODE = """
+import numpy as np
+from vtd_tpu_torch import native
+gen = np.random.default_rng(16)
+logits = gen.normal(0.0, 3.0, (16, 32, 40)).astype(np.float32)
+lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+seqs, scores = native.ctc_beam_decode(lp, beam_width=8)
+pseqs, pscores = native.ctc_beam_decode_plain(lp, beam_width=8)
+assert seqs == pseqs and float(np.abs(scores - pscores).max()) <= 1e-4
+print("REBUILT BEAM OK", native.build().name)
+"""
+
+
+def force_build(native, card):
+    """``build(force=True)`` of both native libraries, as the reference's
+    ``build`` takes it: the CTC beam compiled again into its target (the
+    seconds g++ takes; a fresh process decodes with the rebuilt library
+    as the plain beam does); the libav decoder rebuilt where libav is
+    present, else raising ``RuntimeError`` naming what is missing."""
+    import os
+
+    target = native.build()
+    stamp = os.stat(target)
+    t0 = time.perf_counter()
+    if native.build(force=True) != target:
+        raise AssertionError("build(force=True) wrote another target")
+    seconds = time.perf_counter() - t0
+    after = os.stat(target)
+    if (after.st_mtime_ns, after.st_ino) == (stamp.st_mtime_ns, stamp.st_ino):
+        raise AssertionError("build(force=True) left the library as it was")
+    child = subprocess.run(
+        [sys.executable, "-c", REBUILT_BEAM_CODE], capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    if child.returncode != 0 or "REBUILT BEAM OK" not in child.stdout:
+        raise AssertionError(f"the rebuilt beam: {child.stdout}{child.stderr}")
+    missing = native.video.libav_missing()
+    if missing:
+        try:
+            native.video.build(force=True)
+        except RuntimeError as e:
+            video = f"raises RuntimeError ({e})"
+        else:
+            raise AssertionError("video.build(force=True) built without libav")
+    else:
+        t1 = time.perf_counter()
+        native.video.build(force=True)
+        video = f"rebuilt in {time.perf_counter() - t1:.1f} s"
+    print(f"native.build(force=True): {target.name} compiled again by g++ in "
+          f"{seconds:.2f} s (new file); a fresh process decodes with it as "
+          f"the plain beam does; native.video.build(force=True) {video} "
+          f"({card})")
+
+
 def beam_phase(torch, np, card, state):
     """The C++ CTC prefix beam against the plain Python beam."""
     from vtd_tpu_torch import native
@@ -1343,6 +1488,7 @@ def beam_phase(torch, np, card, state):
     t0 = time.perf_counter()
     lib = native.build()
     print(f"built {lib.name} with g++ in {time.perf_counter() - t0:.1f} s")
+    force_build(native, card)
     pipe = trained_pipeline(state, "crnn")
     ref = verify_frames(np)
     frames = torch.from_numpy(np.stack([ref["frame_i420"]] * B)).cuda()
@@ -2949,6 +3095,7 @@ def run_hostapi(torch, np, card, results, state, tmp):
     print(f"hostapi extract_single_frame({HOSTAPI_FRAME}) -> "
           f"process_single_frame reads {texts}; segmented_cc_round {calls} "
           f"calls ({cuda} CUDA launches), neighbor_min_sweeps 0")
+    one_map_ops(torch, np, results, pipe, frame, card)
 
     # the schemas rebuild process_video's result dict field for field
     res = asyncio.run(pipe.process_video(clip))
@@ -2983,6 +3130,67 @@ def run_hostapi(torch, np, card, results, state, tmp):
         raise AssertionError(f"/metrics counts {frames} CRNN frames")
     print(f"hostapi start_metrics_server: GET /metrics {len(body)} bytes, "
           f"the pipeline's CRNN frames {frames:g}")
+
+
+ONE_MAP_BOX_TOL = 1e-3  # px, as the CPU parity tests hold boxes
+ONE_MAP_SCORE_TOL = 1e-5
+ONE_MAP_CROP_TOL = 1e-5
+
+
+def one_map_ops(torch, np, results, pipe, frame, card):
+    """The reference's one-map calls of the per-map ops on the card, on the
+    trained detector's maps of B frames (the verify frame, mirrored every
+    other frame): ``db_postprocess`` of map 0 against row 0 of the batched
+    call, and ``crop_and_resize_boxes_mm`` of image 0 with row 0's boxes
+    against row 0 of the batched crop; both kernels counted on the
+    one-map call."""
+    from vtd_tpu_torch.ops.crop import crop_and_resize_boxes_mm
+    from vtd_tpu_torch.ops.db_postprocess import db_postprocess
+
+    frames = np.stack([frame if i % 2 == 0 else frame[:, ::-1]
+                       for i in range(B)])
+    bgr = torch.from_numpy(np.ascontiguousarray(frames)).cuda()
+    kw = dict(max_dets=64, max_box_frac=pipe.max_box_frac)
+    with torch.inference_mode():
+        prob = pipe.detector.probability(bgr)
+        torch.cuda.synchronize()
+        reset_counts()
+        one = db_postprocess(prob[0], 0.5, **kw)
+        torch.cuda.synchronize()
+        calls, cuda = record_path(results, "hostapi_one_map")
+        batch = db_postprocess(prob, 0.5, **kw)
+        crop_one = crop_and_resize_boxes_mm(bgr[0], batch["boxes"][0],
+                                            batch["valid"][0])
+        crop_batch = crop_and_resize_boxes_mm(bgr, batch["boxes"],
+                                              batch["valid"])
+        torch.cuda.synchronize()
+    if set(one) != set(batch) or one["boxes"].shape != (64, 4):
+        raise AssertionError(f"db_postprocess on one map: {sorted(one)}")
+    for key in ("valid", "areas"):
+        if not torch.equal(one[key], batch[key][0]):
+            raise AssertionError(f"db_postprocess on one map: {key} differs")
+    box_err = max(float((one[k] - batch[k][0]).abs().max())
+                  for k in ("boxes", "polygons", "xmin", "xmax", "ymin",
+                            "ymax"))
+    score_err = float((one["scores"] - batch["scores"][0]).abs().max())
+    crop_err = float((crop_one - crop_batch[0]).abs().max())
+    if crop_one.shape != (64, 32, 128, 3):
+        raise AssertionError(f"one image's crops {tuple(crop_one.shape)}")
+    n_valid = int(one["valid"].sum())
+    if not (box_err <= ONE_MAP_BOX_TOL and score_err <= ONE_MAP_SCORE_TOL
+            and crop_err <= ONE_MAP_CROP_TOL and n_valid >= len(TRUTH)):
+        raise AssertionError(
+            f"one map against the batched row: boxes {box_err}, scores "
+            f"{score_err}, crops {crop_err}, {n_valid} valid slots")
+    if (calls, cuda) != (3, 8):
+        raise AssertionError(f"db_postprocess on one map: segmented_cc_round "
+                             f"{calls} calls = {cuda} CUDA launches")
+    print(f"hostapi one map: db_postprocess([640x640]) equals row 0 of the "
+          f"[{B}x640x640] call ({n_valid} valid slots, valid and areas "
+          f"equal, boxes within {box_err:.3g} px, scores within "
+          f"{score_err:.3g}), segmented_cc_round {calls} calls = {cuda} "
+          f"CUDA launches; crop_and_resize_boxes_mm([640x640x3], [64, 4]) "
+          f"equals row 0 of the batched crop within {crop_err:.3g} ({card})")
 
 
 # the default TrOCRConfig split over a row against the unsplit recogniser,
@@ -3653,7 +3861,8 @@ def main(argv=None) -> int:
         "--baseline", metavar="DIR",
         help="another checkout (e.g. the parent commit unpacked with git "
              "archive) whose neighbor_min_sweeps is timed beside this one's "
-             "in the sweeps and dense phases",
+             "in the sweeps and dense phases, and both wrappers' host time "
+             "per batched call in the single-map checks",
     )
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -3683,8 +3892,10 @@ def main(argv=None) -> int:
     results: dict = {}
     state: dict = {}  # pipelines shared by the trained-weights phases
     run = {
-        "segmented": lambda: segmented_phase(torch, np, results),
-        "sweeps": lambda: sweeps_phase(torch, np, results, args.baseline),
+        "segmented": lambda: segmented_phase(torch, np, results, card,
+                                             args.baseline),
+        "sweeps": lambda: sweeps_phase(torch, np, results, card,
+                                       args.baseline),
         "dense": lambda: dense_phase(torch, np, results, args.baseline),
         "crnn": lambda: pipeline_phase(torch, np, card, results),
         "trocr": lambda: trocr_phase(torch, np, card, results),

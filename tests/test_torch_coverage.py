@@ -17,6 +17,13 @@ drivers. Every subcommand of ``vtd_tpu/__main__.py`` must exist in
 ``vtd_tpu_torch/__main__.py`` with every flag its parser takes.
 
 So a public symbol added to ``vtd_tpu`` without a counterpart fails here.
+
+Each matched pair of functions or methods (and of constructors, where the
+reference's class defines ``__init__``) is also compared by parameter
+name: every parameter of the reference must be a parameter of the port's
+counterpart (followed through the port's re-exports), unless the port's
+takes ``**kwargs`` or :data:`PARAM_DIVERGENCES` names it with its reason.
+So a reference keyword the port does not take fails here too.
 """
 import ast
 import functools
@@ -93,6 +100,77 @@ NO_PORT = {
     "vtd_tpu/models/trocr.py:DecoderBlock.setup": _FLAX_SETUP,
     "vtd_tpu/models/trocr.py:TrOCRDecoder.setup": _FLAX_SETUP,
     "vtd_tpu/models/trocr.py:TrOCR.setup": _FLAX_SETUP,
+}
+
+_JAX_TREE = ("a JAX pytree of the reference; the port's counterpart takes "
+             "the torch module (or its state dict) in its place")
+_OPTAX = ("an optax transformation; the port's train steps close over the "
+          "model and its torch optimizer (train steps are closures, "
+          "ROADMAP's training divergences)")
+
+# reference parameters the port's counterpart does not take, and why:
+# "file:symbol:parameter" -> reason
+PARAM_DIVERGENCES = {
+    "vtd_tpu/ops/pallas_kernels.py:segmented_cc_round:labels2d":
+        "the port's labels takes [H, W] (the reference's labels2d) or "
+        "[B, H, W] (ops/cc_kernels.py:segmented_cc_round)",
+    "vtd_tpu/ops/pallas_kernels.py:segmented_cc_round:interpret":
+        "Pallas's interpret mode; the port's wrapper picks its plain twin "
+        "by the tensor's device (ops/cc_kernels.py)",
+    "vtd_tpu/ops/pallas_kernels.py:neighbor_min_sweeps:labels2d":
+        "the port's labels takes [H, W] (the reference's labels2d) or "
+        "[B, H, W] (ops/cc_kernels.py:neighbor_min_sweeps)",
+    "vtd_tpu/ops/pallas_kernels.py:neighbor_min_sweeps:interpret":
+        "Pallas's interpret mode; the port's wrapper picks its plain twin "
+        "by the tensor's device (ops/cc_kernels.py)",
+    "vtd_tpu/models/trocr.py:greedy_generate:variables": _JAX_TREE,
+    "vtd_tpu/parallel/sharding.py:batch_sharding:ndim":
+        "sizes a JAX PartitionSpec; the port's batch_sharding splits the "
+        "batch itself, whatever its rank",
+    "vtd_tpu/parallel/sharding.py:infer_param_shardings:variables":
+        _JAX_TREE,
+    "vtd_tpu/parallel/sharding.py:shard_variables:variables": _JAX_TREE,
+    "vtd_tpu/train/checkpoint.py:restore_variables:target":
+        "an orbax restore target tree; the port's OCDBT reader returns the "
+        "stored arrays without one (train/checkpoint.py)",
+    "vtd_tpu/train/trainer.py:create_train_state:rng":
+        "a JAX PRNG key; the port's weights come from a torch.Generator "
+        "seed (train/trainer.py:create_train_state's seed)",
+    "vtd_tpu/train/trainer.py:create_train_state:input_shape":
+        "shapes flax's init trace; a torch module needs no input to build "
+        "its weights",
+    "vtd_tpu/train/trainer.py:make_train_step:tx": _OPTAX,
+    "vtd_tpu/train/recognizer_trainer.py:make_crnn_train_step:tx": _OPTAX,
+    "vtd_tpu/train/trocr_trainer.py:make_trocr_train_step:tx": _OPTAX,
+    "vtd_tpu/train/recognizer_trainer.py:RecognizerTrainer.evaluate:params":
+        _JAX_TREE,
+    "vtd_tpu/train/recognizer_trainer.py:RecognizerTrainer.evaluate:"
+    "batch_stats": _JAX_TREE,
+    "vtd_tpu/train/trocr_trainer.py:TrOCRTrainer.evaluate:params": _JAX_TREE,
+    # the COUNTERPARTS pairs, whose port functions take what the port
+    # reads in place of the reference's file or tree
+    "vtd_tpu/models/import_torch.py:import_dbnet_pth:path":
+        "the port converts the app's state dict (convert.py:"
+        "dbnet_from_app_state); train/checkpoint.py:load_weights reads "
+        "the file",
+    "vtd_tpu/models/import_torch.py:import_resnet50:prefix":
+        "dbnet_from_app_state reads the whole app state dict, backbone keys "
+        "with their prefix (convert.py)",
+    "vtd_tpu/models/import_torch.py:import_crnn_state:sd":
+        "the port's CRNN is keyed as the app's: an app state dict loads "
+        "through CRNN.load_state_dict",
+    "vtd_tpu/models/import_torch.py:import_trocr_pth:path":
+        "TransformerRecognizer._load takes the same file as model_path "
+        "(runtime/trocr_runtime.py)",
+    "vtd_tpu/models/import_torch.py:import_trocr_pth:cfg":
+        "TransformerRecognizer._load reads the recogniser's own self.cfg "
+        "(runtime/trocr_runtime.py)",
+    "tools/r5_promote.py:score:cfg":
+        "eval_trocr_ckpt.evaluate names it config, as the script's "
+        "--config flag that the reference's score passes cfg to",
+    "__graft_entry__.py:dryrun_multichip:n_devices":
+        "chip_smoke.py's parallel phase runs on every visible card "
+        "(torch.cuda.device_count())",
 }
 
 # driver files with no port counterpart, and why
@@ -209,6 +287,99 @@ def missing(rel: str) -> list:
 @pytest.mark.parametrize("rel", ref_modules())
 def test_module_is_covered(rel):
     assert missing(rel) == []
+
+
+def resolve(rel: str, symbol: str, depth: int = 0):
+    """The ``def`` (or ``class``) node ``symbol`` of the file ``rel``,
+    following the file's relative imports (a package's re-exports); a
+    class stands for its ``__init__``. None where neither is found."""
+    names = bound_names(parse(rel).body)
+    head, _, method = symbol.partition(".")
+    node = names.get(head)
+    if isinstance(node, ast.ImportFrom) and node.level and depth < 4:
+        base = os.path.dirname(rel)
+        for _ in range(node.level - 1):
+            base = os.path.dirname(base)
+        mod = os.path.join(base, *node.module.split(".")) if node.module \
+            else base
+        name = next(a.name for a in node.names if (a.asname or a.name) == head)
+        for path in (mod + ".py", os.path.join(mod, "__init__.py")):
+            if os.path.isfile(os.path.join(REPO, path)):
+                return resolve(path, ".".join(filter(None, (name, method))),
+                               depth + 1)
+        return None
+    if method:
+        node = bound_names(node.body).get(method) if isinstance(
+            node, ast.ClassDef) else None
+    if isinstance(node, ast.ClassDef):
+        node = bound_names(node.body).get("__init__")
+    return node if isinstance(node, (ast.FunctionDef,
+                                     ast.AsyncFunctionDef)) else None
+
+
+def parameters(node) -> tuple:
+    """(parameter names, whether it takes ``**kwargs``) of a def, a
+    method's ``self`` or ``cls`` left out."""
+    a = node.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    if names[:1] in (["self"], ["cls"]):
+        names = names[1:]
+    return names, a.kwarg is not None
+
+
+def param_pairs(rel: str) -> list:
+    """(reference key, port target, reference parameters, port parameters
+    or None where the target is not a def, whether the port takes
+    ``**kwargs``) for each matched function, method and constructor of
+    ``rel``."""
+    out = []
+    if rel in NO_PORT:
+        return out
+    for sym in public_symbols(rel):
+        key = f"{rel}:{sym}"
+        ref = resolve(rel, sym)
+        if key in NO_PORT or ref is None:
+            continue
+        target = COUNTERPARTS.get(key, f"{port_path(rel)}:{sym}")
+        t_rel, t_sym = target.split(":")
+        port = resolve(t_rel, t_sym)
+        names, kwargs = parameters(port) if port else (None, False)
+        out.append((key, target, parameters(ref)[0], names, kwargs))
+    return out
+
+
+def param_gaps(rel: str) -> list:
+    """Reference parameters of ``rel`` that the port's counterpart lacks,
+    with no :data:`PARAM_DIVERGENCES` entry."""
+    out = []
+    for key, target, ref, port, kwargs in param_pairs(rel):
+        if port is None:
+            out.append(f"{key}: {target} is no function this test can read")
+        elif not kwargs:
+            out += [f"{key}:{p} (not a parameter of {target})" for p in ref
+                    if p not in port and f"{key}:{p}" not in
+                    PARAM_DIVERGENCES]
+    return out
+
+
+@pytest.mark.parametrize("rel", ref_modules() + [
+    d for d in drivers() if d not in NOT_DRIVERS])
+def test_parameters_are_covered(rel):
+    assert param_gaps(rel) == []
+
+
+def test_every_param_divergence_names_a_reference_parameter():
+    """No stale entry: each names a parameter of a matched reference
+    function that its port counterpart does not take, with a reason."""
+    pairs = {key: (ref, port) for rel in ref_modules() + drivers()
+             if rel not in NOT_DRIVERS
+             for key, _, ref, port, _ in param_pairs(rel)}
+    for entry, reason in PARAM_DIVERGENCES.items():
+        rel, sym, param = entry.split(":")
+        ref, port = pairs[f"{rel}:{sym}"]
+        assert param in ref, entry
+        assert param not in port, entry
+        assert len(reason) > 20 and "\n" not in reason, entry
 
 
 def imported_modules(rel: str) -> set:

@@ -1,0 +1,4 @@
+"""The reference's ``tests/test_storage_s3.py``, run against ``vtd_tpu_torch``."""
+from torch_ref_cases import cases, load
+
+globals().update(cases(load("test_storage_s3")))

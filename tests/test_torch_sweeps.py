@@ -148,8 +148,8 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting():
 @pytest.mark.parametrize(
     "binary,labels,iters,exc",
     [
-        (torch.zeros(4, 4, dtype=torch.bool),
-         torch.zeros(4, 4, dtype=torch.int32), 8, ValueError),
+        (torch.zeros(4, dtype=torch.bool),  # one map is [H, W]
+         torch.zeros(4, dtype=torch.int32), 8, ValueError),
         (torch.zeros(1, 4, 4, dtype=torch.bool),
          torch.zeros(1, 4, 5, dtype=torch.int32), 8, ValueError),
         (torch.zeros(1, 4, 4, dtype=torch.uint8),

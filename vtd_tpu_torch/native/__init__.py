@@ -48,11 +48,13 @@ def _target() -> Path:
     return BUILD_DIR / f"libctc_beam-{digest}.so"
 
 
-def build() -> Path:
+def build(force: bool = False) -> Path:
     """Compile ``ctc_beam.cpp`` (once per source hash); return the
-    library's path. Raises when g++ is missing or fails."""
+    library's path. ``force`` compiles again into the same target even
+    when it exists; a library this process has loaded stays loaded.
+    Raises when g++ is missing or fails."""
     out = _target()
-    if out.exists():
+    if out.exists() and not force:
         return out
     gxx = shutil.which("g++")
     if gxx is None:
@@ -60,12 +62,13 @@ def build() -> Path:
             "g++ not found on PATH: the port's CTC beam decoder is built "
             "from vtd_tpu_torch/native/ctc_beam.cpp at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     res = subprocess.run(
         [gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp)],
         capture_output=True, text=True, timeout=300,
     )
     if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"g++ failed for ctc_beam.cpp (exit {res.returncode}):\n"
             f"{res.stdout}{res.stderr}")

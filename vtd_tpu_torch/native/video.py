@@ -88,12 +88,14 @@ def _target() -> Path:
     return BUILD_DIR / f"libvtdvideo-{digest}.so"
 
 
-def build() -> Path:
+def build(force: bool = False) -> Path:
     """Compile ``video_decode.cpp`` (once per source hash); return the
-    library's path. Raises ``RuntimeError`` when libav is absent (naming
-    what is missing) or when g++ fails (with its output)."""
+    library's path. ``force`` compiles again into the same target even
+    when it exists; a library this process has loaded stays loaded.
+    Raises ``RuntimeError`` when libav is absent (naming what is missing)
+    or when g++ fails (with its output)."""
     out = _target()
-    if out.exists():
+    if out.exists() and not force:
         return out
     missing = libav_missing()
     if missing:

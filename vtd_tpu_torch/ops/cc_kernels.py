@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from ._rank import one_or_batch
+
 BIG = 2 ** 30  # label sentinel of the reference
 _count_lock = threading.Lock()
 
@@ -101,7 +103,7 @@ def segmented_cc_round_plain(
 def _check(binary: torch.Tensor, labels: torch.Tensor) -> None:
     if binary.dim() != 3 or labels.shape != binary.shape:
         raise ValueError(
-            f"expected binary and labels of one [B,H,W] shape, got "
+            f"expected binary and labels of one [H,W] or [B,H,W] shape, got "
             f"{tuple(binary.shape)} and {tuple(labels.shape)}"
         )
     if binary.dtype != torch.bool or labels.dtype != torch.int32:
@@ -226,13 +228,16 @@ def _round_kernel():
     return _round_fn
 
 
+@one_or_batch("H, W", "binary", "labels")
 def segmented_cc_round(
     binary: torch.Tensor, labels: torch.Tensor, diag: bool = False
 ) -> torch.Tensor:
-    """One segmented-propagation round over a batch of maps.
+    """One segmented-propagation round over one map or a batch of maps.
 
-    binary [B,H,W] bool, labels [B,H,W] int32 -> new labels [B,H,W]
-    int32; ``diag`` adds the diagonal ladders. CUDA tensors launch the
+    binary [H,W] or [B,H,W] bool, labels of the same shape int32 -> new
+    labels of that shape, int32 (one map, as the reference's kernel takes
+    it, runs as a batch of one); ``diag`` adds the diagonal ladders.
+    CUDA tensors launch the
     kernel (contiguous inputs required; 2 kernels a round, 4 with
     ``diag``); CPU tensors take the plain twin. Off the CPU, maps whose
     strips do not fit a block's shared memory raise ``ValueError`` (see
@@ -376,13 +381,14 @@ def _sweeps_kernel():
     return _sweeps_fn
 
 
+@one_or_batch("H, W", "binary", "labels")
 def neighbor_min_sweeps(
     binary: torch.Tensor, labels: torch.Tensor, iters: int = 8
 ) -> torch.Tensor:
-    """``iters`` 8-neighbour minimum sweeps over a batch of maps.
+    """``iters`` 8-neighbour minimum sweeps over one map or a batch.
 
-    binary [B,H,W] bool, labels [B,H,W] int32 -> new labels [B,H,W]
-    int32: foreground cells take the minimum label of their foreground
+    binary [H,W] or [B,H,W] bool, labels of the same shape int32 -> new
+    labels of that shape, int32 (one map runs as a batch of one): foreground cells take the minimum label of their foreground
     3x3 window (self included) ``iters`` times over, background cells
     keep theirs. CUDA tensors launch the kernel (contiguous inputs
     required); CPU tensors take the plain twin. Any ``iters`` >= 1: one

@@ -4,32 +4,36 @@
 ``crop_and_resize_boxes_mm`` (the video paths' crop): bilinear
 crop+resize is separable, so per-box triangle-kernel interpolation
 matrices A_y [K, out_h, H] and A_x [K, out_w, W] contract against the
-frame in two float32 products. Batched over frames here.
-``crop_and_resize_boxes`` computes the same crop as a gather of four
-neighbours per output pixel, and ``rectify_polygons`` samples rotated
-rectangles onto straight strips. Those two take one image [H, W, 3] with
-[K, ...] boxes, as the reference's do, or a batch [B, H, W, 3] with
-[B, K, ...].
+frame in two float32 products. ``crop_and_resize_boxes`` computes the
+same crop as a gather of four neighbours per output pixel, and
+``rectify_polygons`` samples rotated rectangles onto straight strips.
+All three take one image [H, W, 3] with [K, ...] boxes, as the
+reference's do, or a batch [B, H, W, 3] with [B, K, ...].
 """
 from __future__ import annotations
 
 import torch
 
+from ._rank import one_or_batch
 
+
+@one_or_batch("H, W, 3", "image", "boxes", "valid")
 def crop_and_resize_boxes_mm(
-    images: torch.Tensor,
+    image: torch.Tensor,
     boxes: torch.Tensor,
     valid: torch.Tensor,
     out_h: int = 32,
     out_w: int = 128,
 ) -> torch.Tensor:
-    """images [B, H, W, 3] (uint8 or float), boxes [B, K, 4] (x1, y1, x2,
+    """image [B, H, W, 3] (uint8 or float), boxes [B, K, 4] (x1, y1, x2,
     y2) in image coordinates, valid [B, K] bool -> crops
     [B, K, out_h, out_w, 3] float32 in [0, 1]; invalid slots are zero.
+    One image [H, W, 3] with boxes [K, 4] and valid [K] gives
+    [K, out_h, out_w, 3], as the reference's function.
     Same grid as ``cv2.resize`` of each box: src = (dst + 0.5) * scale - 0.5.
     """
-    b, h, w = images.shape[:3]
-    dev = images.device
+    b, h, w = image.shape[:3]
+    dev = image.device
     f32 = torch.float32
     x1, y1, x2, y2 = boxes.unbind(-1)
     bw = torch.clamp(x2 - x1, min=1.0)
@@ -49,18 +53,10 @@ def crop_and_resize_boxes_mm(
     a_y = torch.clamp(1.0 - torch.abs(rows - yq[..., None]), min=0.0)
     a_x = torch.clamp(1.0 - torch.abs(cols - xq[..., None]), min=0.0)
 
-    img = images.to(f32)
+    img = image.to(f32)
     tmp = torch.einsum("bkyh,bhwc->bkywc", a_y, img)
     crops = torch.einsum("bkxw,bkywc->bkyxc", a_x, tmp) / 255.0
     return torch.where(valid[..., None, None, None], crops, 0.0)
-
-
-def _batched(image, *per_box):
-    """One image with [K, ...] arguments -> a batch of one; returns the
-    arguments and whether to drop the batch axis again."""
-    if image.dim() == 3:
-        return (image[None],) + tuple(a[None] for a in per_box), True
-    return (image,) + per_box, False
 
 
 def _bilinear_sample(
@@ -88,6 +84,7 @@ def _bilinear_sample(
     return top * (1 - fy) + bot * fy
 
 
+@one_or_batch("H, W, 3", "image", "boxes", "valid")
 def crop_and_resize_boxes(
     image: torch.Tensor,
     boxes: torch.Tensor,
@@ -102,7 +99,6 @@ def crop_and_resize_boxes(
     valid [K] bool -> [K, out_h, out_w, 3] float32 in [0, 1] (or the
     same with a leading batch axis); invalid slots are zero.
     """
-    (image, boxes, valid), single = _batched(image, boxes, valid)
     f32 = torch.float32
     dev = image.device
     x1, y1, x2, y2 = boxes.to(f32).unbind(-1)
@@ -121,9 +117,10 @@ def crop_and_resize_boxes(
     yq = ys[..., :, None].expand(shape)
     crops = _bilinear_sample(image, xq, yq) / 255.0
     crops = torch.where(valid[..., None, None, None], crops, 0.0)
-    return crops[0] if single else crops
+    return crops
 
 
+@one_or_batch("H, W, 3", "image", "polygons", "valid")
 def rectify_polygons(
     image: torch.Tensor,
     polygons: torch.Tensor,
@@ -138,7 +135,6 @@ def rectify_polygons(
     longer edge maps to the output width. -> [K, out_h, out_w, 3]
     float32 in [0, 1] (or batched, as :func:`crop_and_resize_boxes`).
     """
-    (image, polygons, valid), single = _batched(image, polygons, valid)
     f32 = torch.float32
     dev = image.device
     polygons = polygons.to(f32)
@@ -160,4 +156,4 @@ def rectify_polygons(
 
     crops = _bilinear_sample(image, query(0), query(1)) / 255.0
     crops = torch.where(valid[..., None, None, None], crops, 0.0)
-    return crops[0] if single else crops
+    return crops

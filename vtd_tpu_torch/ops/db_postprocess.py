@@ -6,7 +6,9 @@ both the top-K components and their boundary cells -> rotating-calipers
 min-area rectangle (coarse sweep, three refinement stages, exact extents
 over every boundary pixel) -> box mean probability from an integral
 image. The JAX function runs once per frame under ``vmap``; here the
-batch dimension is written out, and every tensor carries it first.
+batch dimension is written out, and every tensor carries it first. The
+per-map functions also take the reference's single map (``[H, W]``),
+run it as a batch of one and return the reference's unbatched shapes.
 
 Each propagation round of the labelling goes through
 ``cc_kernels.segmented_cc_round`` (the CUDA kernel on a CUDA tensor); the
@@ -21,6 +23,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ._rank import one_or_batch
 from .cc_kernels import (
     BIG, neighbor_min_sweeps, neighbour_min, segmented_cc_round,
 )
@@ -33,11 +36,12 @@ def _stable(binary: torch.Tensor, lbl: torch.Tensor) -> torch.Tensor:
     return torch.where(binary, m8 >= lbl, True).flatten(1).all(1)
 
 
+@one_or_batch("H, W", "binary")
 def connected_components_scan(
     binary: torch.Tensor, min_rounds: int = 3, max_rounds: int = 3
 ) -> torch.Tensor:
-    """8-connected component labels for [B, H, W] bool maps -> [B, H*W]
-    int32 (``db_postprocess.py:79-235``).
+    """8-connected component labels for [H, W] or [B, H, W] bool maps ->
+    [H*W] or [B, H*W] int32 (``db_postprocess.py:79-235``).
 
     ``min_rounds`` rounds run unconditionally, with the diagonal ladders
     on the second and no pointer jump. When ``max_rounds > min_rounds``
@@ -75,6 +79,7 @@ def connected_components_scan(
 _DENSE_BACKENDS = ("pallas", "pallas-auto", "xla")
 
 
+@one_or_batch("H, W", "binary")
 def connected_components(
     binary: torch.Tensor,
     dense_iters: int = 8,
@@ -82,9 +87,9 @@ def connected_components(
     backend: str = "auto",
     exact: bool = False,
 ) -> torch.Tensor:
-    """[B, H, W] bool -> [B, H*W] int32 labels: each foreground cell holds
-    one label shared by its whole component, background cells their own
-    index (``db_postprocess.py:238-303``).
+    """[H, W] or [B, H, W] bool -> [H*W] or [B, H*W] int32 labels: each
+    foreground cell holds one label shared by its whole component,
+    background cells their own index (``db_postprocess.py:238-303``).
 
     ``backend`` "auto" / "scan": the production schedule, 3 unrolled
     segmented rounds and a repair loop of up to 16 rounds (32 with
@@ -142,8 +147,9 @@ def _topk_lower_index_first(
     return top // n, (n - 1) - top % n
 
 
+@one_or_batch("H, W", "prob_map")
 def db_postprocess(
-    prob_maps: torch.Tensor,
+    prob_map: torch.Tensor,
     bin_thresh: float | torch.Tensor = 0.5,
     *,
     max_dets: int = 64,
@@ -162,6 +168,8 @@ def db_postprocess(
     Returns (full-resolution map coordinates; K = ``max_dets``):
       boxes [B,K,4] (x1,y1,x2,y2), polygons [B,K,4,2], scores [B,K],
       areas [B,K], valid [B,K] bool, and xmin/xmax/ymin/ymax [B,K].
+    One map [H, W] (``bin_thresh`` a float or a 0-d tensor) gives the
+    same without the batch axis, as the reference's function does.
 
     ``cc_iters`` goes to ``connected_components(dense_iters=...)``, as in
     the reference; its default "auto" backend takes no sweeps, so the
@@ -173,13 +181,13 @@ def db_postprocess(
     """
     if stage not in ("full", "cc", "topk", "boundary"):
         raise ValueError(f"unknown stage {stage!r}")
-    bsz, h, w = prob_maps.shape
+    bsz, h, w = prob_map.shape
     k = max_dets
     st = work_stride
-    dev = prob_maps.device
+    dev = prob_map.device
     f32 = torch.float32
 
-    binary_full = prob_maps > bin_thresh
+    binary_full = prob_map > bin_thresh
     hs, ws = h // st, w // st
     n = hs * ws
     binary = (
@@ -412,7 +420,7 @@ def db_postprocess(
 
     # ---- confidence: mean probability inside the AABB ------------------
     # float32 integral image: a bf16 map summed in bf16 would drift.
-    ii = torch.cumsum(torch.cumsum(prob_maps.to(f32), 1), 2)
+    ii = torch.cumsum(torch.cumsum(prob_map.to(f32), 1), 2)
     ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
     ix1 = torch.clamp(bx1.to(torch.int64), 0, w - 1)
     iy1 = torch.clamp(by1.to(torch.int64), 0, h - 1)
@@ -464,8 +472,12 @@ def db_postprocess(
 def db_postprocess_batch(
     prob_maps: torch.Tensor, bin_thresh: float | torch.Tensor = 0.5, **kw
 ) -> Dict[str, torch.Tensor]:
-    """Batched [B, H, W] entry point of the reference's name;
-    :func:`db_postprocess` is batched already (keywords as there)."""
+    """Batched [B, H, W] entry point of the reference's name (keywords as
+    :func:`db_postprocess`); batches only, as the reference's."""
+    if prob_maps.dim() != 3:
+        raise ValueError(
+            f"db_postprocess_batch takes [B, H, W] maps, got "
+            f"{tuple(prob_maps.shape)}")
     return db_postprocess(prob_maps, bin_thresh, **kw)
 
 

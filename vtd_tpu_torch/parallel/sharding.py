@@ -42,25 +42,26 @@ def batch_sharding(batch, mesh: Union[Mesh, int]) -> List[Any]:
     return [batch[i * rows:(i + 1) * rows] for i in range(n)]
 
 
-def shard_variables(model, devices: Union[Mesh, Sequence[torch.device]]
-                    ) -> List[Any]:
-    """One copy of ``model`` per data-axis row (or per device of a list):
-    ``model.replica(row)`` for the runtime's detector and recognizers. On
-    a mesh whose model axis has more than one entry each copy is split
-    over its row (``tensor_parallel.tensor_parallel_``). Otherwise the
-    first entry takes ``model`` itself when it already lies on that
-    device; every other entry gets its own copy, on a repeated device
-    too."""
-    if isinstance(devices, Mesh):
-        if devices.shape[MODEL_AXIS] > 1:
-            return [model.replica(devices.row(i))
-                    for i in range(devices.shape[DATA_AXIS])]
-        devices = devices.data_devices()
+MIN_SIZE = 256
+
+
+def shard_variables(model, mesh: Union[Mesh, Sequence[torch.device]],
+                    min_size: int = MIN_SIZE) -> List[Any]:
+    """One copy of ``model`` per data-axis row of ``mesh`` (or per device
+    of a list): ``model.replica(row)`` for the runtime's detector and
+    recognizers. On a mesh whose model axis has more than one entry each
+    copy is split over its row by the reference's rule at ``min_size``
+    (``tensor_parallel.tensor_parallel_``). Otherwise the first entry
+    takes ``model`` itself when it already lies on that device; every
+    other entry gets its own copy, on a repeated device too."""
+    devices = mesh
+    if isinstance(mesh, Mesh):
+        if mesh.shape[MODEL_AXIS] > 1:
+            return [model.replica(mesh.row(i), min_size)
+                    for i in range(mesh.shape[DATA_AXIS])]
+        devices = mesh.data_devices()
     return [model if i == 0 and d == model.device else model.replica(d)
             for i, d in enumerate(devices)]
-
-
-MIN_SIZE = 256
 
 
 def param_spec(shape: Sequence[int], n_model: int,

@@ -18,7 +18,7 @@ from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.dbnet import DBNet
 from ..ops.db_postprocess import db_postprocess, extract_detections
 from ..ops.preprocess import preprocess_frames, yuv420_to_bgr
-from ..parallel.tensor_parallel import tensor_parallel_
+from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
 from ..train.checkpoint import load_weights, save_state_dict
 
 logger = logging.getLogger(__name__)
@@ -93,16 +93,18 @@ class TextDetector:
         any name, in the port's torch format; returns the path."""
         return save_state_dict(model_path, self.model)
 
-    def replica(self, devices) -> "TextDetector":
+    def replica(self, devices, min_size: int = MIN_SIZE) -> "TextDetector":
         """This detector with its own copy of the model (the same weights
         and compute dtype; no checkpoint is read) on ``devices``: one
-        device, or a mesh row whose wide layers the copy is split over,
-        its activations on the row's first entry."""
+        device, or a mesh row whose wide layers (``min_size`` as in
+        ``tensor_parallel_``) the copy is split over, its activations on
+        the row's first entry."""
         row = (list(devices) if isinstance(devices, (list, tuple))
                else [devices])
         new = copy.copy(self)
         new.device = resolve_device(row[0])
-        new.model = tensor_parallel_(copy.deepcopy(self.model), row)
+        new.model = tensor_parallel_(copy.deepcopy(self.model), row,
+                                     min_size)
         return new
 
     # ------------------------------------------------------------------

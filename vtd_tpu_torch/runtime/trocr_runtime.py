@@ -35,7 +35,7 @@ from ..models.trocr import (
     init_weights_,
     load_config,
 )
-from ..parallel.tensor_parallel import tensor_parallel_
+from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
 from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
@@ -68,16 +68,18 @@ class TransformerRecognizer:
             init_weights_(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
 
-    def replica(self, devices) -> "TransformerRecognizer":
+    def replica(self, devices,
+                min_size: int = MIN_SIZE) -> "TransformerRecognizer":
         """This recognizer with its own copy of the model (no checkpoint
         is read) on ``devices``: one device, or a mesh row whose wide
-        layers the copy is split over, its activations on the row's first
-        entry."""
+        layers (``min_size`` as in ``tensor_parallel_``) the copy is split
+        over, its activations on the row's first entry."""
         row = (list(devices) if isinstance(devices, (list, tuple))
                else [devices])
         new = copy.copy(self)
         new.device = resolve_device(row[0])
-        new.model = tensor_parallel_(copy.deepcopy(self.model), row)
+        new.model = tensor_parallel_(copy.deepcopy(self.model), row,
+                                     min_size)
         return new
 
     @staticmethod
