@@ -4,9 +4,10 @@
 ``VideoTextPipeline(profile_dir=...)`` writes one Chrome trace a
 ``process_video`` call, holding the CPU ops of the dispatcher thread that
 launches the device work, and its results equal those of the same call
-without it. With ``PROFILE_TRACE_DIR`` set, a service job completes and
-leaves its trace. (On the card the trace also names the kernels:
-``chip_smoke.py --phases fleet``.)
+without it; the port's spans (``obs/trace.py``) are ranges in it. With
+``PROFILE_TRACE_DIR`` set, a service job completes and leaves its trace.
+(On the card the trace also names the kernels: ``chip_smoke.py --phases
+fleet``.)
 """
 import asyncio
 import glob
@@ -67,6 +68,29 @@ def test_pipeline_trace_and_unchanged_results(tmp_path, video_tasks):
     # a second call writes a second trace
     asyncio.run(traced.process_video(clip, ""))
     assert len(glob.glob(os.path.join(trace_dir, "*.json"))) == 2
+
+
+def test_pipeline_trace_holds_the_spans(tmp_path, video_tasks):
+    """The spans of ``obs/trace.py`` are ranges of the ``profile_dir``
+    trace, on the thread that ran them, and only while it runs."""
+    from vtd_tpu_torch.obs import trace
+    from vtd_tpu_torch.runtime.pipeline import VideoTextPipeline
+
+    pipe = dict(video_tasks.PIPE, use_transformer_ocr=False)
+    clip = write_clip(str(tmp_path / "clip.mp4"))
+    trace_dir = str(tmp_path / "trace")
+    asyncio.run(VideoTextPipeline(profile_dir=trace_dir, **pipe)
+                .process_video(clip, ""))
+    (path,) = glob.glob(os.path.join(trace_dir, "process_video-*.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [e for e in events if e.get("name", "").startswith("vtd.")]
+    names = {e["name"] for e in ranges}
+    assert {"vtd.dispatch", "vtd.dbnet", "vtd.postprocess", "vtd.crnn",
+            "vtd.collect", "vtd.decode", "vtd.decode_read"} <= names, names
+    tid = {e["name"]: e["tid"] for e in ranges}
+    assert tid["vtd.dispatch"] == tid["vtd.dbnet"] != tid["vtd.collect"]
+    assert trace.span("vtd.after") is trace.span("vtd.after")  # off again
 
 
 def test_profile_trace_dir_in_the_service(tmp_path, monkeypatch,

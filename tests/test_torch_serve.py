@@ -624,7 +624,7 @@ def test_metrics_exposition_parses_line_by_line():
 
     for name in ("video_uploads_total", "model_inference_duration_seconds",
                  "recognizer_chunk_occupancy", "celery_tasks_total",
-                 "app_info_info", "tpu_step_duration_seconds"):
+                 "app_info_info"):
         assert f"# TYPE {name} " in full
         assert name.removesuffix("_total") in {
             n.removesuffix("_total")

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..obs import trace
 from .crnn import VOCAB_CHARS
 
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -501,13 +502,14 @@ def greedy_decode(
     pcnt = torch.zeros(b, dtype=torch.int32, device=dev)
     toks = torch.empty((b, cfg.max_len), dtype=torch.int32, device=dev)
     for step in range(cfg.max_len):
-        logits, caches = model.decode_step(token, enc_kvs, caches, step)
-        pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
-        token = torch.where(done, 0, nxt.to(torch.int32))
-        psum = psum + torch.where(done, 0.0, pmax)
-        pcnt = pcnt + (~done).to(torch.int32)
-        done = done | (token == eos_id)
-        toks[:, step] = token
+        with trace.span("vtd.trocr_step", b):
+            logits, caches = model.decode_step(token, enc_kvs, caches, step)
+            pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
+            token = torch.where(done, 0, nxt.to(torch.int32))
+            psum = psum + torch.where(done, 0.0, pmax)
+            pcnt = pcnt + (~done).to(torch.int32)
+            done = done | (token == eos_id)
+            toks[:, step] = token
     return toks, psum / pcnt.clamp(min=1)
 
 

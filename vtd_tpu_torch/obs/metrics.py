@@ -295,12 +295,8 @@ celery_task_duration = Histogram(
 )
 app_info = Info("app_info", "Application information")
 
-# device-side series of the reference
-tpu_step_duration = Histogram(
-    "tpu_step_duration_seconds",
-    "Fused device step (preprocess+detect+postprocess+crop) duration",
-    labelnames=["stage"],
-)
+# device-side series of the reference, less tpu_step_duration_seconds,
+# which nothing observes (obs/trace.py's spans time the device program)
 recognizer_chunk_occupancy = Histogram(
     "recognizer_chunk_occupancy",
     "Fraction of recognizer chunk slots holding real crops",

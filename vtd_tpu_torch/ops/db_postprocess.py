@@ -23,6 +23,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..obs import trace
 from ._rank import one_or_batch
 from .cc_kernels import (
     BIG, neighbor_min_sweeps, neighbour_min, segmented_cc_round,
@@ -65,7 +66,10 @@ def connected_components_scan(
     if max_rounds > min_rounds:
         active = ~_stable(binary, lbl)
         rounds = min_rounds
-        while rounds < max_rounds and bool(active.any()):
+        while rounds < max_rounds:
+            with trace.span("vtd.cc_sync"):  # the host waits for the device
+                if not bool(active.any()):
+                    break
             nxt = segmented_cc_round(binary, lbl, diag=True)
             flat = nxt.reshape(b, hw)
             nxt = torch.gather(flat, 1, flat.long()).reshape(b, h, w)

@@ -16,6 +16,7 @@ import torch
 
 from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.dbnet import DBNet
+from ..obs import trace
 from ..ops.db_postprocess import db_postprocess, extract_detections
 from ..ops.preprocess import preprocess_frames, yuv420_to_bgr
 from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
@@ -111,12 +112,13 @@ class TextDetector:
     def probability(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """uint8 BGR [B,H,W,3] or I420 [B,H*3/2,W] on the device ->
         probability maps [B, S, S] in the compute dtype."""
-        if frames_u8.dim() == 3:
-            frames_u8 = yuv420_to_bgr(frames_u8)
-        # the reference hands the model a bf16 input whatever the model's
-        # compute dtype (preprocess_frames' default)
-        x = preprocess_frames(frames_u8, self.input_size, torch.bfloat16)
-        return self.model.probability(x.permute(0, 3, 1, 2))
+        with trace.span("vtd.dbnet", len(frames_u8)):
+            if frames_u8.dim() == 3:
+                frames_u8 = yuv420_to_bgr(frames_u8)
+            # the reference hands the model a bf16 input whatever the
+            # model's compute dtype (preprocess_frames' default)
+            x = preprocess_frames(frames_u8, self.input_size, torch.bfloat16)
+            return self.model.probability(x.permute(0, 3, 1, 2))
 
     def _ship(self, frames: np.ndarray) -> np.ndarray:
         """BGR [B,H,W,3] -> I420 [B,H*3/2,W] when configured; packed input

@@ -28,7 +28,8 @@ and every transformer chunk ``recognizer_chunk_occupancy``
 (the dispatcher thread and the collect loop of ``process_video``) in a
 ``torch.profiler`` trace of every thread's CPU ops and, on the card, its
 kernels, written as a Chrome trace to
-``<profile_dir>/process_video-<pid>-<unix ms>.json``.
+``<profile_dir>/process_video-<pid>-<unix ms>.json``; the spans of
+``obs/trace.py`` (``vtd.dispatch``, ``vtd.dbnet``, ...) are ranges in it.
 
 ``mesh`` (``core.mesh.make_mesh``) runs the batch data-parallel: each
 data-axis row holds its own copy of the detector and the recogniser and
@@ -61,6 +62,7 @@ from ..core.device import resolve_device
 from ..core.mesh import DATA_AXIS
 from ..core.schemas import summarize
 from ..obs import metrics as _metrics
+from ..obs import trace
 from ..ops.crop import crop_and_resize_boxes_mm
 from ..ops.ctc import ctc_greedy_decode_arrays, emit_mask_np, ids_to_text
 from ..ops.db_postprocess import db_postprocess
@@ -107,7 +109,8 @@ def _profile_span(profile_dir: Optional[str], device: torch.device):
         # the kernels are launched from the dispatcher thread
         with profile(activities=activities,
                      experimental_config=_ExperimentalConfig(
-                         profile_all_threads=True)) as prof:
+                         profile_all_threads=True)) as prof, \
+                trace.annotating():
             yield
         prof.export_chrome_trace(path)
     finally:
@@ -137,7 +140,9 @@ def detect_and_crop(
         frames_u8 = yuv420_to_bgr(frames_u8)
     b, h, w = frames_u8.shape[:3]
     prob = detector.probability(frames_u8)
-    post = db_postprocess(prob, thresh, max_dets=k, max_box_frac=max_box_frac)
+    with trace.span("vtd.postprocess", b):
+        post = db_postprocess(prob, thresh, max_dets=k,
+                              max_box_frac=max_box_frac)
     # padding frames (batch tails) must not produce valid slots
     valid = post["valid"] & frame_valid[:, None]
     scale = torch.tensor(
@@ -222,10 +227,11 @@ def ship_pack(pack: torch.Tensor, crops: Optional[torch.Tensor] = None):
 def collect(handles: Dict[str, Any]):
     """Wait for every block of dispatched handles -> (the batch's pack
     [B, K, nbytes] as a numpy array, the blocks' handles)."""
-    parts = gather(handles["shards"])
-    for part in parts:
-        if part["event"] is not None:
-            part["event"].synchronize()
+    with trace.span("vtd.collect_wait", len(handles["shards"])):
+        parts = gather(handles["shards"])
+        for part in parts:
+            if part["event"] is not None:
+                part["event"].synchronize()
     packs = [part["pack"].numpy() for part in parts]
     return (packs[0] if len(packs) == 1 else np.concatenate(packs)), parts
 
@@ -472,35 +478,37 @@ class VideoTextPipeline:
         ``shards`` is given) and the ``replicas`` that hold each block's
         crops. Each block's pack is copied into pinned host memory behind
         an event."""
-        thr = (
-            self.confidence_threshold
-            if confidence_threshold is None
-            else confidence_threshold
-        )
-        valid = (
-            np.ones(len(frames), bool) if valid_frames is None
-            else np.asarray(valid_frames, bool)
-        )
-        if self._two_stage is not None:
-            return self._two_stage.dispatch(frames, thr)
-        b = len(frames)
-        n = max(1, len(self.replicas))
-        if full_budget or self._full_budget_latched:
-            budget = (b // n) * self.max_dets
-        else:
-            budget = self._shard_budget(b, n)
-        if not self.replicas:
-            return {"shards": [self._dispatch_on(None, frames, thr, valid,
-                                                 budget)],
-                    "replicas": [None]}
-        blocks = list(zip(batch_sharding(frames, n), batch_sharding(valid, n)))
-        picked = range(n) if shards is None else shards
-        return {
-            "shards": [self.replicas[i].submit(
-                self._dispatch_on, blocks[i][0], thr, blocks[i][1], budget)
-                for i in picked],
-            "replicas": [self.replicas[i] for i in picked],
-        }
+        with trace.span("vtd.dispatch", len(frames)):
+            thr = (
+                self.confidence_threshold
+                if confidence_threshold is None
+                else confidence_threshold
+            )
+            valid = (
+                np.ones(len(frames), bool) if valid_frames is None
+                else np.asarray(valid_frames, bool)
+            )
+            if self._two_stage is not None:
+                return self._two_stage.dispatch(frames, thr)
+            b = len(frames)
+            n = max(1, len(self.replicas))
+            if full_budget or self._full_budget_latched:
+                budget = (b // n) * self.max_dets
+            else:
+                budget = self._shard_budget(b, n)
+            if not self.replicas:
+                return {"shards": [self._dispatch_on(None, frames, thr, valid,
+                                                     budget)],
+                        "replicas": [None]}
+            blocks = list(zip(batch_sharding(frames, n),
+                              batch_sharding(valid, n)))
+            picked = range(n) if shards is None else shards
+            return {
+                "shards": [self.replicas[i].submit(
+                    self._dispatch_on, blocks[i][0], thr, blocks[i][1], budget)
+                    for i in picked],
+                "replicas": [self.replicas[i] for i in picked],
+            }
 
     def _dispatch_on(self, replica: Optional[Replica], frames: np.ndarray,
                      thr: float, valid: np.ndarray, budget: int):
@@ -601,114 +609,117 @@ class VideoTextPipeline:
         """One frame batch -> per-frame lists of recognized-region dicts.
         ``orig_size``: true (h, w) of the source when ``frames`` were
         downscaled on the host."""
-        if frames.ndim == 3:  # I420-packed
-            b, h15, w = frames.shape
-            h = (h15 * 2) // 3
-        else:
-            b, h, w = frames.shape[:3]
-        if orig_size is not None:
-            h, w = orig_size
-        size = self.detector.input_size
-        t0 = time.perf_counter()
-        if handles is None:
-            handles = self._dispatch_batch(
-                frames, valid_frames=valid_frames,
-                confidence_threshold=confidence_threshold,
-            )
-        out_pack, parts = self._collect(handles)
-        parsed = self._parse_pack(out_pack, b)
+        with trace.span("vtd.collect", len(frames)):
+            if frames.ndim == 3:  # I420-packed
+                b, h15, w = frames.shape
+                h = (h15 * 2) // 3
+            else:
+                b, h, w = frames.shape[:3]
+            if orig_size is not None:
+                h, w = orig_size
+            size = self.detector.input_size
+            t0 = time.perf_counter()
+            if handles is None:
+                handles = self._dispatch_batch(
+                    frames, valid_frames=valid_frames,
+                    confidence_threshold=confidence_threshold,
+                )
+            out_pack, parts = self._collect(handles)
+            parsed = self._parse_pack(out_pack, b)
 
-        # Slots past the recognition budget carry blank transcripts. Each
-        # block recognises its share of the batch's budget; a block with
-        # more valid detections than that is dispatched again with the
-        # full budget (its pack is authoritative for everything in it).
-        # When the batch as a whole overflows its budget, the pipeline
-        # latches to the full budget for every later batch.
-        if (
-            parsed["ctc"] is not None
-            and self._two_stage is None
-            and not self._full_budget_latched
-        ):
-            n = len(parts)
-            per_block = parsed["valid"].reshape(n, -1).sum(1)
-            over = [int(i) for i in
-                    np.nonzero(per_block > self._shard_budget(b, n))[0]]
-            n_valid = int(per_block.sum())
-            budget = self._effective_rec_budget(b)
-            if n_valid > budget:
-                if not self._rec_budget_warned:
-                    self._rec_budget_warned = True
-                    logger.warning(
-                        "batch has %d valid detections but the recognition "
-                        "budget is %d: recovering via a full-budget second "
-                        "pass and latching to the full budget. Raise "
-                        "rec_budget (up to batch_size*max_dets) to avoid "
-                        "it.", n_valid, budget,
-                    )
-                self._full_budget_latched = True
-            if over:
-                redo, _ = self._collect(self._dispatch_batch(
-                    frames, confidence_threshold=confidence_threshold,
-                    valid_frames=valid_frames, full_budget=True, shards=over,
-                ))
-                rows = b // n
-                out_pack = out_pack.copy()
-                for k, blk in enumerate(over):
-                    out_pack[blk * rows:(blk + 1) * rows] = redo[
-                        k * rows:(k + 1) * rows]
-                parsed = self._parse_pack(out_pack, b)
+            # Slots past the recognition budget carry blank transcripts. Each
+            # block recognises its share of the batch's budget; a block with
+            # more valid detections than that is dispatched again with the
+            # full budget (its pack is authoritative for everything in it).
+            # When the batch as a whole overflows its budget, the pipeline
+            # latches to the full budget for every later batch.
+            if (
+                parsed["ctc"] is not None
+                and self._two_stage is None
+                and not self._full_budget_latched
+            ):
+                n = len(parts)
+                per_block = parsed["valid"].reshape(n, -1).sum(1)
+                over = [int(i) for i in
+                        np.nonzero(per_block > self._shard_budget(b, n))[0]]
+                n_valid = int(per_block.sum())
+                budget = self._effective_rec_budget(b)
+                if n_valid > budget:
+                    if not self._rec_budget_warned:
+                        self._rec_budget_warned = True
+                        logger.warning(
+                            "batch has %d valid detections but the "
+                            "recognition budget is %d: recovering via a "
+                            "full-budget second pass and latching to the "
+                            "full budget. Raise rec_budget (up to "
+                            "batch_size*max_dets) to avoid it.",
+                            n_valid, budget,
+                        )
+                    self._full_budget_latched = True
+                if over:
+                    redo, _ = self._collect(self._dispatch_batch(
+                        frames, confidence_threshold=confidence_threshold,
+                        valid_frames=valid_frames, full_budget=True,
+                        shards=over,
+                    ))
+                    rows = b // n
+                    out_pack = out_pack.copy()
+                    for k, blk in enumerate(over):
+                        out_pack[blk * rows:(blk + 1) * rows] = redo[
+                            k * rows:(k + 1) * rows]
+                    parsed = self._parse_pack(out_pack, b)
 
-        boxes = parsed["boxes"]
-        polys = parsed["polys"]
-        scores = parsed["scores"]
-        valid = parsed["valid"]
-        ctc = parsed["ctc"]
-        sx, sy = w / size, h / size
-        bx = (boxes * np.asarray([sx, sy, sx, sy])).astype(np.int64)
-        size_ok = (bx[..., 2] - bx[..., 0] > 10) & (
-            bx[..., 3] - bx[..., 1] > 10
-        )
-        keep = valid & size_ok & np.asarray(valid_frames)[:, None]
-        need_ij = np.argwhere(keep)
-        need: List[int] = (
-            need_ij[:, 0] * self.max_dets + need_ij[:, 1]
-        ).tolist()
-        polys_int = np.round(polys).astype(int)
-        texts: Dict[int, Any] = {}
-        if ctc is None:
-            texts = self._recognize_slots(handles, parts, need, b)
-        elif need:
-            sel = np.asarray(need)
-            decoded = ids_to_text(ctc["ids"][sel], ctc["emit"][sel])
-            for kk, flat in enumerate(need):
-                texts[flat] = (decoded[kk], float(ctc["confidence"][flat]))
-        # from the collect of this batch to its last transcript (the
-        # reference's span, vtd_tpu/runtime/pipeline.py:616-723)
-        _metrics.metrics_collector.record_model_inference(
-            time.perf_counter() - t0,
-            "transformer" if self.use_transformer else "DBNet-CRNN",
-            b,
-        )
-        min_rconf = (
-            self.min_recognition_confidence
-            if min_recognition_confidence is None
-            else min_recognition_confidence
-        )
-        results: List[List[Dict[str, Any]]] = [[] for _ in range(b)]
-        for (i, j), flat in zip(need_ij, need):
-            text, rconf = texts[flat]
-            if rconf < min_rconf:
-                continue
-            results[int(i)].append(
-                {
-                    "bbox": bx[i, j].tolist(),
-                    "text": text,
-                    "detection_confidence": float(scores[i, j]),
-                    "recognition_confidence": rconf,
-                    "polygon": polys_int[i, j].tolist(),
-                }
+            boxes = parsed["boxes"]
+            polys = parsed["polys"]
+            scores = parsed["scores"]
+            valid = parsed["valid"]
+            ctc = parsed["ctc"]
+            sx, sy = w / size, h / size
+            bx = (boxes * np.asarray([sx, sy, sx, sy])).astype(np.int64)
+            size_ok = (bx[..., 2] - bx[..., 0] > 10) & (
+                bx[..., 3] - bx[..., 1] > 10
             )
-        return results
+            keep = valid & size_ok & np.asarray(valid_frames)[:, None]
+            need_ij = np.argwhere(keep)
+            need: List[int] = (
+                need_ij[:, 0] * self.max_dets + need_ij[:, 1]
+            ).tolist()
+            polys_int = np.round(polys).astype(int)
+            texts: Dict[int, Any] = {}
+            if ctc is None:
+                texts = self._recognize_slots(handles, parts, need, b)
+            elif need:
+                sel = np.asarray(need)
+                decoded = ids_to_text(ctc["ids"][sel], ctc["emit"][sel])
+                for kk, flat in enumerate(need):
+                    texts[flat] = (decoded[kk], float(ctc["confidence"][flat]))
+            # from the collect of this batch to its last transcript (the
+            # reference's span, vtd_tpu/runtime/pipeline.py:616-723)
+            _metrics.metrics_collector.record_model_inference(
+                time.perf_counter() - t0,
+                "transformer" if self.use_transformer else "DBNet-CRNN",
+                b,
+            )
+            min_rconf = (
+                self.min_recognition_confidence
+                if min_recognition_confidence is None
+                else min_recognition_confidence
+            )
+            results: List[List[Dict[str, Any]]] = [[] for _ in range(b)]
+            for (i, j), flat in zip(need_ij, need):
+                text, rconf = texts[flat]
+                if rconf < min_rconf:
+                    continue
+                results[int(i)].append(
+                    {
+                        "bbox": bx[i, j].tolist(),
+                        "text": text,
+                        "detection_confidence": float(scores[i, j]),
+                        "recognition_confidence": rconf,
+                        "polygon": polys_int[i, j].tolist(),
+                    }
+                )
+            return results
 
     # ------------------------------------------------------------------
     def dispatch_batch(
@@ -779,43 +790,45 @@ class VideoTextPipeline:
         ckpt_fh = None
         try:
             start_time = time.time()
-            video_info = self.video_processor.get_video_info(video_path)
-            if not video_info:
-                raise ValueError(f"Cannot open video: {video_path}")
+            with trace.span("vtd.job_open"):
+                video_info = self.video_processor.get_video_info(video_path)
+                if not video_info:
+                    raise ValueError(f"Cannot open video: {video_path}")
 
-            done_frames: Dict[int, Dict[str, Any]] = {}
-            if resume_file:
-                if _os.path.exists(resume_file):
-                    with open(resume_file) as fh:
-                        for line in fh:
-                            try:
-                                rec = _json.loads(line)
-                                done_frames[rec["frame_number"]] = rec
-                            except ValueError:
-                                continue  # torn write from a crash
-                ckpt_fh = open(resume_file, "a")
+                done_frames: Dict[int, Dict[str, Any]] = {}
+                if resume_file:
+                    if _os.path.exists(resume_file):
+                        with open(resume_file) as fh:
+                            for line in fh:
+                                try:
+                                    rec = _json.loads(line)
+                                    done_frames[rec["frame_number"]] = rec
+                                except ValueError:
+                                    continue  # torn write from a crash
+                    ckpt_fh = open(resume_file, "a")
 
-            src_fps = video_info.get("fps", 0) or 0
-            total_src = video_info.get("frame_count", 0)
-            interval = (
-                max(1, int(src_fps / self.target_fps)) if src_fps > 0 else 1
-            )
-            total_expected = (
-                (total_src + interval - 1) // interval if total_src else 0
-            )
-            all_results: List[Dict[str, Any]] = []
-            frame_count = 0
+                src_fps = video_info.get("fps", 0) or 0
+                total_src = video_info.get("frame_count", 0)
+                interval = (
+                    max(1, int(src_fps / self.target_fps))
+                    if src_fps > 0 else 1
+                )
+                total_expected = (
+                    (total_src + interval - 1) // interval if total_src else 0
+                )
+                all_results: List[Dict[str, Any]] = []
+                frame_count = 0
 
-            batches = self.video_processor.extract_frame_batches(
-                video_path,
-                batch_size=self.batch_size,
-                target_fps=self.target_fps,
-                resize_to=self.ship_dims(video_info),
-                pixel_format=self.transfer_format,
-                sample_mode=mode,
-                decode_workers=self.decode_workers,
-                decode_backend=self.decode_backend,
-            )
+                batches = self.video_processor.extract_frame_batches(
+                    video_path,
+                    batch_size=self.batch_size,
+                    target_fps=self.target_fps,
+                    resize_to=self.ship_dims(video_info),
+                    pixel_format=self.transfer_format,
+                    sample_mode=mode,
+                    decode_workers=self.decode_workers,
+                    decode_backend=self.decode_backend,
+                )
             # frame_number -> detections of keyframes, for propagation to
             # the near-duplicate candidates each keyframe covers
             kf_detections: Dict[int, List[Dict[str, Any]]] = {}
@@ -938,13 +951,14 @@ class VideoTextPipeline:
                         except _queue.Empty:
                             break
                     disp_t.join(timeout=10.0)
-            # dups follow their keyframe's batch, and parallel segment
-            # decode interleaves batches: restore frame order
-            all_results.sort(key=lambda r: r["frame_number"])
-            processing_time = time.time() - start_time
-            summary = summarize(all_results, processing_time, frame_count)
-            if dedup:
-                summary.update(_dedup_summary(all_results))
+            with trace.span("vtd.job_close"):
+                # dups follow their keyframe's batch, and parallel segment
+                # decode interleaves batches: restore frame order
+                all_results.sort(key=lambda r: r["frame_number"])
+                processing_time = time.time() - start_time
+                summary = summarize(all_results, processing_time, frame_count)
+                if dedup:
+                    summary.update(_dedup_summary(all_results))
             return {
                 "status": "success",
                 "results": all_results,

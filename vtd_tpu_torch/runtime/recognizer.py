@@ -20,6 +20,7 @@ import torch
 
 from ..core.device import compute_dtype, resolve_device, seeded_init_
 from ..models.crnn import CRNN, ID_TO_CHAR, build_vocab
+from ..obs import trace
 from ..ops.ctc import ctc_greedy_decode_arrays, ids_to_text
 from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
 from ..train.checkpoint import load_weights
@@ -115,7 +116,8 @@ class TextRecognizer:
 
     def logits(self, crops: torch.Tensor) -> torch.Tensor:
         """[N, 32, 128, 3] float crops in [0, 1] (NHWC) -> [N, 31, 97]."""
-        return self.crnn(crops.permute(0, 3, 1, 2))
+        with trace.span("vtd.crnn", len(crops)):
+            return self.crnn(crops.permute(0, 3, 1, 2))
 
     # ------------------------------------------------------------------
     def recognize(self, image: np.ndarray) -> Dict[str, Any]:

@@ -35,6 +35,7 @@ from ..models.trocr import (
     init_weights_,
     load_config,
 )
+from ..obs import trace
 from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
 from ..train.checkpoint import load_weights
 
@@ -142,10 +143,11 @@ class TransformerRecognizer:
     def generate(self, crops: torch.Tensor):
         """Normalised [N, H, W, 3] crops on the device -> (tokens
         [N, max_len] int32, confidences [N]) on the device."""
-        return greedy_generate(
-            self.model, crops,
-            bos_id=self.tokenizer.BOS, eos_id=self.tokenizer.EOS,
-        )
+        with trace.span("vtd.trocr", len(crops)):
+            return greedy_generate(
+                self.model, crops,
+                bos_id=self.tokenizer.BOS, eos_id=self.tokenizer.EOS,
+            )
 
     def recognize_crops_device(
         self, crops: torch.Tensor

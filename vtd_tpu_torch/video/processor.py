@@ -25,6 +25,8 @@ from typing import Any, AsyncGenerator, Dict, Generator, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import trace
+
 logger = logging.getLogger(__name__)
 
 
@@ -136,17 +138,26 @@ class VideoProcessor:
                         pos = 0
                     while pos < start and cap.grab():
                         pos += 1
-            frame_number = start
-            while end is None or frame_number < end:
-                if not cap.grab():
+            frame_number = start  # the next source frame to grab
+            while True:
+                # the grabs up to the next candidate and its retrieve
+                with trace.span("vtd.decode_read", 0) as sp:
+                    frame = None
+                    n0 = frame_number
+                    while end is None or frame_number < end:
+                        if not cap.grab():
+                            break
+                        frame_number += 1
+                        if (frame_number - 1) % interval == 0:
+                            ret, got = cap.retrieve()
+                            frame = got if ret else None
+                            break
+                    sp.items = frame_number - n0
+                if frame is None:
                     break
-                if frame_number % interval == 0:
-                    ret, frame = cap.retrieve()
-                    if not ret:
-                        break
-                    ts = frame_number / source_fps if source_fps > 0 else 0.0
-                    yield frame, frame_number // interval, ts
-                frame_number += 1
+                src = frame_number - 1
+                ts = src / source_fps if source_fps > 0 else 0.0
+                yield frame, src // interval, ts
         except Exception as e:
             logger.error("Frame extraction failed: %s", e)
             if strict:
@@ -201,14 +212,18 @@ class VideoProcessor:
                 reader.seek(start)
             src_end = -1 if end is None else int(end)
             while True:
-                if gate is None:
-                    frames, idx = reader.read_batch(interval, chunk, src_end)
-                    dup_idx = dup_ref = idx[:0]
-                else:
-                    frames, idx, dup_idx, dup_ref = reader.read_batch_kf(
-                        interval, chunk, src_end,
-                        kf_diff=gate[0], kf_max_gap=gate[1],
-                    )
+                # items: the source frames the read's candidates span
+                with trace.span("vtd.decode_read", 0) as sp:
+                    if gate is None:
+                        frames, idx = reader.read_batch(
+                            interval, chunk, src_end)
+                        dup_idx = dup_ref = idx[:0]
+                    else:
+                        frames, idx, dup_idx, dup_ref = reader.read_batch_kf(
+                            interval, chunk, src_end,
+                            kf_diff=gate[0], kf_max_gap=gate[1],
+                        )
+                    sp.items = (len(frames) + len(dup_idx)) * interval
                 if len(frames) == 0 and len(dup_idx) == 0:
                     return
                 for k in range(len(frames)):
@@ -388,25 +403,27 @@ class VideoProcessor:
             ):
                 if stop.is_set():
                     return
-                if sample_mode == "keyframe":
-                    sig = self._keyframe_signature(frame)
-                    if last_sig is not None and since_kf < max_gap:
-                        diff = float(np.abs(sig - last_sig).mean())
-                        if diff < keyframe_diff:
-                            since_kf += 1
-                            buf_dups.append((idx, ts, last_kf))
-                            continue
-                    last_sig, last_kf, since_kf = sig, idx, 0
-                if not orig_size:
-                    orig_size.append(frame.shape[:2])
-                if resize_wh is not None and frame.shape[:2] != (
-                    resize_wh[1], resize_wh[0],
-                ):
-                    frame = cv2.resize(
-                        frame, resize_wh, interpolation=cv2.INTER_LINEAR
-                    )
-                if pixel_format == "yuv420":
-                    frame = cv2.cvtColor(frame, cv2.COLOR_BGR2YUV_I420)
+                with trace.span("vtd.decode_prep"):
+                    if sample_mode == "keyframe":
+                        sig = self._keyframe_signature(frame)
+                        if last_sig is not None and since_kf < max_gap:
+                            diff = float(np.abs(sig - last_sig).mean())
+                            if diff < keyframe_diff:
+                                since_kf += 1
+                                buf_dups.append((idx, ts, last_kf))
+                                continue
+                        last_sig, last_kf, since_kf = sig, idx, 0
+                    if not orig_size:
+                        orig_size.append(frame.shape[:2])
+                    if resize_wh is not None and frame.shape[:2] != (
+                        resize_wh[1], resize_wh[0],
+                    ):
+                        frame = cv2.resize(
+                            frame, resize_wh, interpolation=cv2.INTER_LINEAR
+                        )
+                    if pixel_format == "yuv420":
+                        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2YUV_I420)
+                # outside the span: a full batch waits here for the queue
                 append(frame, idx, ts)
             flush()
 
@@ -451,7 +468,11 @@ class VideoProcessor:
         t.start()
         try:
             while True:
-                item = q.get()
+                # the consumer's wait for the producers' next batch
+                with trace.span("vtd.decode", 0) as sp:
+                    item = q.get()
+                    if isinstance(item, dict) and "valid" in item:
+                        sp.items = int(item["valid"].sum())
                 if item is None:
                     break
                 if isinstance(item, BaseException):
