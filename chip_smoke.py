@@ -1010,6 +1010,77 @@ def trocr_stage_times(torch, pipe, frames, card, label: str = ""):
           + f" ({card})")
 
 
+def trocr_graph_times(torch, tr, card):
+    """The graphed decode (``runtime/trocr_runtime.py:GraphedDecode``)
+    against the eager step loop on one chunk of ``pad_batch`` crops of the
+    full-width model: a fresh replica's capture of its graphs (the
+    ``vtd.trocr_capture`` span), the host ms ``generate`` takes to
+    enqueue a chunk, wall ms (synchronised) and device ms (CUDA events) a
+    chunk both ways; every row's tokens must agree, and the confidences
+    within 1e-4."""
+    from vtd_tpu_torch.models.trocr import greedy_generate
+    from vtd_tpu_torch.obs import trace
+
+    c = tr.cfg
+    gen = torch.Generator().manual_seed(13)
+    crops = (torch.rand((tr.pad_batch, c.image_size, c.width, 3),
+                        generator=gen) * 2 - 1).to(c.dtype).cuda()
+    rep = tr.replica("cuda")
+    torch.cuda.synchronize()
+    trace.start()
+    try:
+        rep.generate(crops[:1])
+        torch.cuda.synchronize()
+    finally:
+        trace.stop()
+    spans = trace.snapshot()["spans"]
+    cap = [s for s in spans if s.name == "vtd.trocr_capture"]
+    if len(cap) != 1 or not rep._graphed:
+        raise AssertionError(f"TrOCR graphs not captured: {cap}")
+    cap_ms = (cap[0].t1_ns - cap[0].t0_ns) * 1e-6
+
+    def graphed():
+        return rep.generate(crops)
+
+    def eager():
+        return greedy_generate(rep.model, crops)
+
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("graphs", graphed), ("eager", eager)):
+            fn()
+            host, wall, dev = [], [], []
+            for _ in range(5):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                toks, conf = fn()
+                t1 = time.perf_counter()
+                b.record()
+                torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e3)
+                wall.append((time.perf_counter() - t0) * 1e3)
+                dev.append(a.elapsed_time(b))
+            out[name] = [sorted(x)[2] for x in (host, wall, dev)] + [toks, conf]
+    rows = int((out["graphs"][3] == out["eager"][3]).all(dim=1).sum())
+    conf_err = float((out["graphs"][4] - out["eager"][4]).abs().max())
+    print(f"TrOCR graphed decode: {len(rep._graphed.graphs)} step graphs "
+          f"captured in {cap_ms:.1f} ms (warm-up steps included); a chunk "
+          f"of {tr.pad_batch} crops, medians of 5, host / wall / device ms: "
+          f"graphs {out['graphs'][0]:.3f} / {out['graphs'][1]:.3f} / "
+          f"{out['graphs'][2]:.3f}, eager {out['eager'][0]:.3f} / "
+          f"{out['eager'][1]:.3f} / {out['eager'][2]:.3f}; tokens equal in "
+          f"{rows} of {tr.pad_batch} rows, confidences within "
+          f"{conf_err:.2e} ({card})")
+    if rows != tr.pad_batch or conf_err > 1e-4:
+        raise AssertionError(
+            f"graphed TrOCR decode differs from the eager loop: tokens "
+            f"equal in {rows} of {tr.pad_batch} rows, confidences within "
+            f"{conf_err:.2e} (at most 1e-4)")
+
+
 def trocr_phase(torch, np, card, results):
     """The TrOCR engine through VideoTextPipeline at full width: the
     default TrOCRConfig (384x384, patch 16, encoder 768x12, decoder
@@ -1081,8 +1152,9 @@ def trocr_phase(torch, np, card, results):
           f"pipelined, {n_crops / elapsed:.3f} crops/s, "
           f"{elapsed / len(chunks) * 1e3:.3f} ms per chunk end to end "
           f"(seeded weights, bf16, {card})")
-    tr.generate = generate
+    del tr.generate  # the class's method again (a replica copies the attribute)
     trocr_stage_times(torch, pipe, torch.from_numpy(batches[0]).cuda(), card)
+    trocr_graph_times(torch, tr, card)
 
 
 def pipeline_phase(torch, np, card, results):

@@ -144,6 +144,50 @@ def test_greedy_generate_stops_rows_at_eos():
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), atol=1e-4)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_static_step_matches_greedy_decode(kind):
+    """The static-shape step (``DecodeState`` + ``greedy_step_``, what the
+    card captures as a CUDA graph), run eagerly: chunks of 5, 1, 3 and 5
+    rows in turn through one state sized 5, so each chunk after the first
+    reuses buffers another chunk left behind. The head's <eos> column is
+    scaled so that some rows end early and others run to ``max_len``.
+    Tokens equal to ``greedy_decode``'s and the reference's; confidences
+    within 1e-6 of ``greedy_decode``'s, 1e-4 of the reference's."""
+    from vtd_tpu.models.trocr import greedy_generate as ref_generate
+    from vtd_tpu_torch.convert import trocr_from_jax
+    from vtd_tpu_torch.models.trocr import (
+        DecodeState, greedy_decode, greedy_step_)
+
+    ref, variables, port, cfg = _pair(kind, seed=4)
+    head = variables["params"]["decoder"]["lm_head"]
+    kernel = np.array(head["kernel"])
+    kernel[:, 2] *= 4.0
+    head["kernel"] = kernel
+    port.load_state_dict(trocr_from_jax(variables, cfg))
+    images, _ = _inputs(cfg, 3, b=5)
+    want_t, want_c = (np.asarray(a) for a in ref_generate(
+        ref, variables, images, bos_id=1, eos_id=2))
+    ended = (want_t == 2).any(axis=1)
+    assert ended.any() and not ended.all()
+    state = DecodeState(cfg, 5)
+    x = torch.from_numpy(images)
+    for rows in ([0, 1, 2, 3, 4], [3], [4, 0, 2], [4, 3, 2, 1, 0]):
+        with torch.inference_mode():
+            enc_kvs = port.encode_kv(x[rows])
+            eager_t, eager_c = greedy_decode(port, enc_kvs)
+            view = state.rows(len(rows))
+            view.start(enc_kvs)
+            for _ in range(cfg.max_len):
+                greedy_step_(port, view)
+            got_t, got_c = view.toks.clone(), view.confidences()
+        assert int(state.pos) == cfg.max_len
+        np.testing.assert_array_equal(got_t.numpy(), eager_t.numpy())
+        np.testing.assert_allclose(got_c.numpy(), eager_c.numpy(), atol=1e-6,
+                                   rtol=0)
+        np.testing.assert_array_equal(got_t.numpy(), want_t[rows])
+        np.testing.assert_allclose(got_c.numpy(), want_c[rows], atol=1e-4)
+
+
 def test_cached_step_equals_teacher_forced_forward():
     """decode_step with the K/V caches reproduces the full-sequence
     logits position by position (pre-LN and post-norm)."""

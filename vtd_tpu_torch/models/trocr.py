@@ -26,6 +26,7 @@ the reference; K/V caches are ``[B, T, heads, head_dim]``.
 """
 from __future__ import annotations
 
+import copy
 import json
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
@@ -357,6 +358,22 @@ class DecoderBlock(nn.Module):
 
         return self._layer(x, attend, enc_kv), self_kv
 
+    def step_at(self, x, self_kv: KV, enc_kv: KV, pos, live):
+        """``step`` at a position held on the device (``pos`` int64 [1]),
+        so every step is the same graph: the new K/V are written with
+        ``index_copy_`` and the whole [B,Tmax,H,hd] cache is attended
+        under ``live`` [Tmax] (True at positions <= ``pos``), the
+        reference's own formulation, whose masked weights are exactly 0."""
+        k_cache, v_cache = self_kv
+
+        def attend(y):
+            k_new, v_new = self.self_attn.project_kv(y)
+            k_cache.index_copy_(1, pos, k_new)
+            v_cache.index_copy_(1, pos, v_new)
+            return self.self_attn(y, None, mask=live, kv_cache=self_kv)[0]
+
+        return self._layer(x, attend, enc_kv)
+
 
 class TrOCRDecoder(nn.Module):
     def __init__(self, cfg: TrOCRConfig):
@@ -421,6 +438,20 @@ class TrOCRDecoder(nn.Module):
             x, _ = blk.step(x, kv, ekv, step_idx)
         return self._head(x)[:, 0], caches
 
+    def step_at(self, token, enc_kvs: List[KV], caches: List[KV], pos):
+        """``step`` at a position held on the device (int64 [1]): the
+        position embedding gathered at ``pos + pos_offset``, every block's
+        ``step_at``. token [B] -> logits [B,V]; the caches are written in
+        place. No host read, no shape that depends on ``pos``."""
+        c = self.cfg
+        x = self._embed_at(
+            token[:, None], self.pos_embed.index_select(1, pos + c.pos_offset)
+        )
+        live = torch.arange(c.max_len, device=pos.device) <= pos
+        for blk, ekv, kv in zip(self.blocks, enc_kvs, caches):
+            x = blk.step_at(x, kv, ekv, pos, live)
+        return self._head(x)[:, 0]
+
 
 class TrOCR(nn.Module):
     def __init__(self, cfg: TrOCRConfig):
@@ -484,6 +515,17 @@ def init_decoder_cache(cfg: TrOCRConfig, batch: int, device=None) -> List[KV]:
 
 
 @torch.inference_mode()
+def _greedy_pick(logits, done, eos_id: int):
+    """One greedy step's choice from logits [B,V] and ``done`` [B]: (the
+    token, <pad> on finished rows; its probability and 1 to count, 0 on
+    finished rows; ``done`` after it). The step that emits <eos> still
+    counts."""
+    pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
+    token = torch.where(done, 0, nxt.to(torch.int32))
+    return (token, torch.where(done, 0.0, pmax), (~done).to(torch.int32),
+            done | (token == eos_id))
+
+
 def greedy_decode(
     model: TrOCR, enc_kvs: List[KV], bos_id: int = 1, eos_id: int = 2
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -504,11 +546,9 @@ def greedy_decode(
     for step in range(cfg.max_len):
         with trace.span("vtd.trocr_step", b):
             logits, caches = model.decode_step(token, enc_kvs, caches, step)
-            pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
-            token = torch.where(done, 0, nxt.to(torch.int32))
-            psum = psum + torch.where(done, 0.0, pmax)
-            pcnt = pcnt + (~done).to(torch.int32)
-            done = done | (token == eos_id)
+            token, p, n, done = _greedy_pick(logits, done, eos_id)
+            psum = psum + p
+            pcnt = pcnt + n
             toks[:, step] = token
     return toks, psum / pcnt.clamp(min=1)
 
@@ -521,3 +561,80 @@ def greedy_generate(
     int32, mean token probability [B]). The encoder and the
     cross-attention K/V run once, then ``greedy_decode``."""
     return greedy_decode(model, model.encode_kv(images), bos_id, eos_id)
+
+
+# ---------------------------------------------------------------------------
+# Static-shape greedy decode: every step the same graph
+# ---------------------------------------------------------------------------
+class DecodeState:
+    """Static buffers of one greedy decode of up to ``batch`` rows: the
+    per-layer cross-attention K/V, the self-attention caches, the token,
+    ``done``, the confidence sums and counts, the output tokens and the
+    position (int64 [1]). Every buffer keeps its storage for the life of
+    the state, so a captured step can be replayed over it.
+    ``rows(b)`` views the first ``b`` rows of each (the position is
+    shared), so steps of every row count write the same storage."""
+
+    def __init__(self, cfg: TrOCRConfig, batch: int, device=None):
+        hd = cfg.dec_dim // cfg.dec_heads
+        cross = (batch, cfg.num_patches, cfg.dec_heads, hd)
+        self.enc_kvs = [
+            tuple(torch.zeros(cross, dtype=cfg.dtype, device=device)
+                  for _ in range(2))
+            for _ in range(cfg.dec_layers)
+        ]
+        self.caches = init_decoder_cache(cfg, batch, device)
+        self.token = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.done = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.psum = torch.zeros(batch, dtype=torch.float32, device=device)
+        self.pcnt = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.toks = torch.zeros((batch, cfg.max_len), dtype=torch.int32,
+                                device=device)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def rows(self, b: int) -> "DecodeState":
+        new = copy.copy(self)
+        new.enc_kvs = [(k[:b], v[:b]) for k, v in self.enc_kvs]
+        new.caches = [(k[:b], v[:b]) for k, v in self.caches]
+        for name in ("token", "done", "psum", "pcnt", "toks"):
+            setattr(new, name, getattr(self, name)[:b])
+        return new
+
+    def start(self, enc_kvs: List[KV], bos_id: int = 1) -> None:
+        """A new chunk, on the device: its cross-attention K/V (from
+        ``TrOCR.encode_kv``, the state's row count) copied in, the caches
+        zeroed, every row at <bos>, not done, at position 0."""
+        for (k, v), (ek, ev) in zip(self.enc_kvs, enc_kvs):
+            k.copy_(ek)
+            v.copy_(ev)
+        for k, v in self.caches:
+            k.zero_()
+            v.zero_()
+        self.token.fill_(bos_id)
+        self.done.zero_()
+        self.psum.zero_()
+        self.pcnt.zero_()
+        self.pos.zero_()
+
+    def confidences(self) -> torch.Tensor:
+        """Mean token probability [B] of the decode so far (a new tensor)."""
+        return self.psum / self.pcnt.clamp(min=1)
+
+
+@torch.inference_mode()
+def greedy_step_(model: TrOCR, state: DecodeState, eos_id: int = 2) -> None:
+    """One step of ``greedy_decode`` on ``state``'s buffers, in place, at
+    the position ``state.pos`` holds, which it advances: the same
+    arithmetic as the loop's body, with the self-attention over the whole
+    masked cache. It allocates nothing that outlives it and reads nothing
+    back, so it can be captured once and replayed ``max_len`` times."""
+    logits = model.decoder.step_at(
+        state.token, state.enc_kvs, state.caches, state.pos
+    )
+    token, p, n, done = _greedy_pick(logits, state.done, eos_id)
+    state.token.copy_(token)
+    state.psum.add_(p)
+    state.pcnt.add_(n)
+    state.done.copy_(done)
+    state.toks.index_copy_(1, state.pos, token[:, None])
+    state.pos.add_(1)

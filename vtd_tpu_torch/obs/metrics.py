@@ -301,6 +301,16 @@ recognizer_chunk_occupancy = Histogram(
     "recognizer_chunk_occupancy",
     "Fraction of recognizer chunk slots holding real crops",
 )
+# the port's own: how TransformerRecognizer.generate decoded each chunk
+# (path="graph": replays of captured CUDA graphs; "eager": the step loop)
+# and how many step graphs it captured
+trocr_decode_chunks_total = Counter(
+    "trocr_decode_chunks_total", "TrOCR chunks decoded, by decode path",
+    labelnames=["path"],
+)
+trocr_graph_captures_total = Counter(
+    "trocr_graph_captures_total", "TrOCR decode-step CUDA graphs captured",
+)
 
 # HTTP series of the middleware (vtd_tpu/serve/middleware.py:26-36)
 http_requests_total = Counter(

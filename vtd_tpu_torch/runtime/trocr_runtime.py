@@ -14,32 +14,116 @@ weights are drawn from ``seed``.
 Unlike the reference there is no zero padding to ``pad_batch``
 multiples: rows are independent and PyTorch has no compile bucket to
 fill. ``pad_batch`` stays as the pipeline's default chunk size.
+
+On the card, a chunk of 1 to ``pad_batch`` crops decodes through
+:class:`GraphedDecode`: each greedy step is one replay of a CUDA graph
+captured at the recognizer's first ``generate``, so the host no longer
+launches every kernel of every step. The eager step loop
+(``greedy_generate``) stays for the CPU, a model split over a mesh row
+and larger chunks; ``trocr_decode_chunks_total{path}`` counts which
+path each chunk took.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import logging
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from ..core.device import resolve_device
 from ..models.trocr import (
     CharTokenizer,
+    DecodeState,
     TrOCR,
     TrOCRConfig,
     greedy_generate,
+    greedy_step_,
     init_weights_,
     load_config,
 )
+from ..obs import metrics as _metrics
 from ..obs import trace
-from ..parallel.tensor_parallel import MIN_SIZE, tensor_parallel_
+from ..parallel.tensor_parallel import MIN_SIZE, n_split, tensor_parallel_
 from ..train.checkpoint import load_weights
 
 logger = logging.getLogger(__name__)
+
+
+class GraphedDecode:
+    """The greedy decode of an unsplit model on the card, one CUDA graph
+    replay a step.
+
+    Static buffers (:class:`DecodeState`) sized ``pad_batch`` rows, and
+    one graph of ``greedy_step_`` per row count 1..``pad_batch``, each
+    captured on the ``[:b]`` views of those buffers; the graphs share one
+    memory pool (no tensor allocated in a capture outlives it). All are
+    captured when the object is made. The caller serialises ``decode``
+    (the buffers are one)."""
+
+    def __init__(self, model: TrOCR, pad_batch: int, bos_id: int,
+                 eos_id: int):
+        self.model = model
+        self.bos_id, self.eos_id = bos_id, eos_id
+        self.device = next(model.parameters()).device
+        self.state = DecodeState(model.cfg, pad_batch, self.device)
+        self.views = [self.state.rows(b) for b in range(1, pad_batch + 1)]
+        # orders a chunk after the last one where callers' streams differ
+        self._last = torch.cuda.Event()
+        self.graphs = self._capture()
+
+    def _capture(self):
+        with trace.span("vtd.trocr_capture", len(self.views)), \
+                torch.cuda.device(self.device):
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            graphs, pool = [], None
+            with torch.cuda.stream(side):
+                # eager steps first: cuBLAS handles and workspaces, lazily
+                # loaded kernels, every shape once outside a capture
+                for view in self.views:
+                    view.pos.zero_()
+                    greedy_step_(self.model, view, self.eos_id)
+                for view in self.views:
+                    g = torch.cuda.CUDAGraph()
+                    # other threads keep launching eager work meanwhile
+                    g.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                    try:
+                        greedy_step_(self.model, view, self.eos_id)
+                    finally:
+                        g.capture_end()
+                    pool = g.pool()
+                    graphs.append(g)
+            cur.wait_stream(side)
+            _metrics.trocr_graph_captures_total.inc(len(graphs))
+            return graphs
+
+    def decode(self, enc_kvs):
+        """Per-layer cross-attention K/V of b <= ``pad_batch`` rows ->
+        (tokens [b, max_len] int32, confidences [b]): new tensors, so
+        chunks enqueued back to back each keep their own."""
+        b = enc_kvs[0][0].shape[0]
+        view, graph = self.views[b - 1], self.graphs[b - 1]
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(self._last)
+        view.start(enc_kvs, self.bos_id)
+        for _ in range(self.model.cfg.max_len):
+            # an op-scoped record, as an aten op has, so that a profiler
+            # links the graph's kernels to this call and to the ranges
+            # around it (it links none under a ``record_function`` alone)
+            with trace.span("vtd.trocr_step", b), \
+                    _RecordFunctionFast("vtd.trocr_graph_replay"):
+                graph.replay()
+        out = view.toks.clone(), view.confidences()
+        self._last.record(cur)
+        return out
 
 
 class TransformerRecognizer:
@@ -68,6 +152,8 @@ class TransformerRecognizer:
         else:
             init_weights_(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self._lock = threading.Lock()
+        self._graphed = None  # GraphedDecode, False where none applies
 
     def replica(self, devices,
                 min_size: int = MIN_SIZE) -> "TransformerRecognizer":
@@ -81,6 +167,8 @@ class TransformerRecognizer:
         new.device = resolve_device(row[0])
         new.model = tensor_parallel_(copy.deepcopy(self.model), row,
                                      min_size)
+        new._lock = threading.Lock()
+        new._graphed = None  # its own graphs, captured in its own thread
         return new
 
     @staticmethod
@@ -140,10 +228,29 @@ class TransformerRecognizer:
             logger.error("Text recognition failed: %s", e)
             return [{"text": "", "confidence": 0.0}] * len(images)
 
+    def _graphed_decode(self) -> Optional[GraphedDecode]:
+        """This recognizer's graphed decoder, captured at its first call;
+        None for a model split over a mesh row, which keeps the eager loop.
+        Called under ``_lock``, on the card."""
+        if self._graphed is None:
+            self._graphed = (
+                GraphedDecode(self.model, self.pad_batch,
+                              self.tokenizer.BOS, self.tokenizer.EOS)
+                if n_split(self.model) == 0 else False)
+        return self._graphed or None
+
     def generate(self, crops: torch.Tensor):
         """Normalised [N, H, W, 3] crops on the device -> (tokens
         [N, max_len] int32, confidences [N]) on the device."""
         with trace.span("vtd.trocr", len(crops)):
+            if self.device.type == "cuda" and 1 <= len(crops) <= self.pad_batch:
+                with self._lock, torch.inference_mode():
+                    graphed = self._graphed_decode()
+                    if graphed is not None:
+                        _metrics.trocr_decode_chunks_total.labels(
+                            path="graph").inc()
+                        return graphed.decode(self.model.encode_kv(crops))
+            _metrics.trocr_decode_chunks_total.labels(path="eager").inc()
             return greedy_generate(
                 self.model, crops,
                 bos_id=self.tokenizer.BOS, eos_id=self.tokenizer.EOS,
