@@ -38,7 +38,12 @@ any error:
   trocr      drive the TrOCR engine through ``VideoTextPipeline`` at full
              width (default TrOCRConfig: 384x384, encoder 768x12, decoder
              1024x12, 50 steps, bf16), check the model's numerics, count
-             crops recognised and kernel launches, print stage times;
+             crops recognised and kernel launches (``decode_attention``:
+             2 x 12 layers x 50 steps a chunk), print stage times; time
+             ``decode_attention`` at the decoder's shapes beside its bound,
+             its plain version and ``F.scaled_dot_product_attention`` (a
+             yardstick only), and a 16-crop chunk's graphed kernels with
+             the kernel and with the plain attention captured instead;
   trained    restore the repo's trained checkpoints (``models/``) with the
              port's own OCDBT reader, run the CRNN path at config 3's
              settings (batch 16, 64 slots, ``host_downscale=640``, I420,
@@ -1010,6 +1015,68 @@ def trocr_stage_times(torch, pipe, frames, card, label: str = ""):
           + f" ({card})")
 
 
+def decode_attention_times(torch, card):
+    """``ops/decode_attention.py`` at trocr-base's decoder shapes (bf16,
+    16 heads of 64): the cross-attention over a chunk's 577 positions
+    (16 rows, and a one-crop tail) and the self-attention's 50-slot cache
+    at its last step. The kernel against the plain version first (within
+    ``decode_attention.tolerance``, as the card tests hold it), then
+    device us a call of the kernel, of the plain version and of
+    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+    calls it), each a CUDA graph over 12 K/V sets as a step's 12 layers
+    read them (about 450 MB at 16 rows: the 50 MB L2 keeps none), beside
+    the bound: K and V read once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from vtd_tpu_torch.ops import decode_attention as op
+
+    heads, hd, layers = 16, 64, 12
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for name, b, t, pos in (("cross", 16, 577, None), ("cross", 1, 577, None),
+                            ("self", 16, 50, 49)):
+        sets = [tuple(torch.randn(shape, generator=gen, device="cuda")
+                      .to(torch.bfloat16)
+                      for shape in ((b, heads * hd), (b, t, heads, hd),
+                                    (b, t, heads, hd)))
+                for _ in range(layers)]
+        p = None if pos is None else torch.tensor([pos], device="cuda")
+        mask = (None if p is None else
+                (torch.arange(t, device="cuda") <= p).view(1, 1, 1, t))
+        q, k, v = sets[0]
+        got = op.decode_attention(q, k, v, p).float()
+        want = op.decode_attention_plain(q, k, v, p).float()
+        # in units of the tolerance: 1 = at the limit the card tests hold
+        gap = float(((got - want).abs()
+                     / op.tolerance(q, k, v, p, want)).max())
+        if not gap <= 1:
+            raise AssertionError(
+                f"decode_attention {name} B={b} T={t} is {gap:.3f} of its "
+                f"tolerance from its plain version")
+
+        def over_layers(fn):
+            def call():
+                for q, k, v in sets:
+                    fn(q, k, v)
+            return call
+
+        def library(q, k, v):
+            F.scaled_dot_product_attention(
+                q.reshape(b, 1, heads, hd).transpose(1, 2),
+                k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask)
+
+        kern, plain, lib = (
+            graph_us(torch, over_layers(fn), rounds=2, reps=10) / layers
+            for fn in (lambda q, k, v: op.decode_attention(q, k, v, p),
+                       lambda q, k, v: op.decode_attention_plain(q, k, v, p),
+                       library))
+        bound = 2 * b * t * heads * hd * 2 / HBM_BYTES_PER_S * 1e6
+        print(f"decode_attention {name} B={b} T={t} bf16: kernel "
+              f"{kern:.2f} us a call, bound {bound:.2f} us (K and V once; "
+              f"{100 * bound / kern:.1f} % of it), plain {plain:.2f} us, "
+              f"library_ms {lib / 1e3:.4f} (sdpa, yardstick); gap to the "
+              f"plain version {gap:.3f} of its tolerance ({card})")
+
+
 def trocr_graph_times(torch, tr, card):
     """The graphed decode (``runtime/trocr_runtime.py:GraphedDecode``)
     against the eager step loop on one chunk of ``pad_batch`` crops of the
@@ -1018,8 +1085,10 @@ def trocr_graph_times(torch, tr, card):
     enqueue a chunk, wall ms (synchronised) and device ms (CUDA events) a
     chunk both ways; every row's tokens must agree, and the confidences
     within 1e-4."""
+    from vtd_tpu_torch.models import trocr
     from vtd_tpu_torch.models.trocr import greedy_generate
     from vtd_tpu_torch.obs import trace
+    from vtd_tpu_torch.ops import decode_attention as op
 
     c = tr.cfg
     gen = torch.Generator().manual_seed(13)
@@ -1039,15 +1108,30 @@ def trocr_graph_times(torch, tr, card):
         raise AssertionError(f"TrOCR graphs not captured: {cap}")
     cap_ms = (cap[0].t1_ns - cap[0].t0_ns) * 1e-6
 
+    # the same graphs captured with the attention's plain version (the
+    # arithmetic before the kernel), for the chunk's kernel time before
+    old = tr.replica("cuda")
+    trocr.decode_attention = op.decode_attention_plain
+    try:
+        old.generate(crops[:1])
+    finally:
+        trocr.decode_attention = op.decode_attention
+    if any(old._graphed.launches):
+        raise AssertionError("the plain-attention graphs launched the kernel")
+
     def graphed():
         return rep.generate(crops)
 
     def eager():
         return greedy_generate(rep.model, crops)
 
+    def graphed_plain():
+        return old.generate(crops)
+
     out = {}
     with torch.inference_mode():
-        for name, fn in (("graphs", graphed), ("eager", eager)):
+        for name, fn in (("graphs", graphed), ("eager", eager),
+                         ("plain", graphed_plain)):
             fn()
             host, wall, dev = [], [], []
             for _ in range(5):
@@ -1064,8 +1148,15 @@ def trocr_graph_times(torch, tr, card):
                 wall.append((time.perf_counter() - t0) * 1e3)
                 dev.append(a.elapsed_time(b))
             out[name] = [sorted(x)[2] for x in (host, wall, dev)] + [toks, conf]
+    del old
     rows = int((out["graphs"][3] == out["eager"][3]).all(dim=1).sum())
     conf_err = float((out["graphs"][4] - out["eager"][4]).abs().max())
+    rows_plain = int((out["graphs"][3] == out["plain"][3]).all(dim=1).sum())
+    print(f"TrOCR chunk of {tr.pad_batch} crops, graphed, device ms (medians "
+          f"of 5): {out['graphs'][2]:.3f} with decode_attention, "
+          f"{out['plain'][2]:.3f} with the plain attention captured instead "
+          f"(before the kernel); tokens equal in {rows_plain} of "
+          f"{tr.pad_batch} rows between the two ({card})")
     print(f"TrOCR graphed decode: {len(rep._graphed.graphs)} step graphs "
           f"captured in {cap_ms:.1f} ms (warm-up steps included); a chunk "
           f"of {tr.pad_batch} crops, medians of 5, host / wall / device ms: "
@@ -1090,6 +1181,7 @@ def trocr_phase(torch, np, card, results):
     from vtd_tpu_torch.ops.cc_kernels import (
         neighbor_min_sweeps, segmented_cc_round,
     )
+    from vtd_tpu_torch.ops.decode_attention import decode_attention
     from vtd_tpu_torch.runtime import VideoTextPipeline
 
     t0 = time.perf_counter()
@@ -1137,6 +1229,13 @@ def trocr_phase(torch, np, card, results):
                     cuda_launches)
     record_launches(results, "neighbor_min_sweeps", "launches_trocr_path",
                     neighbor_min_sweeps.launches)
+    attn = decode_attention.launches
+    record_launches(results, "decode_attention", "launches_trocr_path", attn)
+    per_step = 2 * tr.cfg.dec_layers
+    if attn != per_step * tr.cfg.max_len * len(chunks):
+        raise AssertionError(
+            f"decode_attention ran {attn} times over {len(chunks)} chunks of "
+            f"{tr.cfg.max_len} steps; {per_step} a step expected")
     n_det = check_results_sized(outs, 640, 360)
     n_crops = sum(chunks)
     if n_crops != n_det or n_crops == 0:
@@ -1147,13 +1246,15 @@ def trocr_phase(torch, np, card, results):
     print(f"TrOCR path: {N_TROCR_BATCHES} pipelined batches x {B} frames, "
           f"{launches} segmented_cc_round calls ({cuda_launches} CUDA "
           f"launches), {n_det} detections, "
-          f"{n_crops} crops recognised in {len(chunks)} chunks")
+          f"{n_crops} crops recognised in {len(chunks)} chunks; "
+          f"decode_attention {attn} launches ({per_step} a decode step)")
     print(f"TrOCR path throughput {B * N_TROCR_BATCHES / elapsed:.3f} frames/s "
           f"pipelined, {n_crops / elapsed:.3f} crops/s, "
           f"{elapsed / len(chunks) * 1e3:.3f} ms per chunk end to end "
           f"(seeded weights, bf16, {card})")
     del tr.generate  # the class's method again (a replica copies the attribute)
     trocr_stage_times(torch, pipe, torch.from_numpy(batches[0]).cuda(), card)
+    decode_attention_times(torch, card)
     trocr_graph_times(torch, tr, card)
 
 
@@ -1189,6 +1290,10 @@ def pipeline_phase(torch, np, card, results):
                     cuda_launches)
     record_launches(results, "neighbor_min_sweeps", "launches_crnn_path",
                     neighbor_min_sweeps.launches)
+    from vtd_tpu_torch.ops.decode_attention import decode_attention
+
+    record_launches(results, "decode_attention", "launches_crnn_path",
+                    decode_attention.launches)
 
     n_det = check_results_sized(outs, 640, 360)
 
@@ -1335,7 +1440,9 @@ def reset_counts():
     from vtd_tpu_torch.ops.cc_kernels import (
         neighbor_min_sweeps, segmented_cc_round,
     )
+    from vtd_tpu_torch.ops.decode_attention import decode_attention
 
+    decode_attention.launches = 0
     segmented_cc_round.launches = 0
     segmented_cc_round.cuda_launches = 0
     neighbor_min_sweeps.launches = 0
@@ -1343,12 +1450,16 @@ def reset_counts():
 
 
 def record_path(results, path: str) -> tuple:
-    """Both kernels' counts since :func:`reset_counts`, into the kernels
+    """The kernels' counts since :func:`reset_counts`, into the kernels
     line under ``path``; returns the labelling kernel's (calls, CUDA
     launches)."""
     from vtd_tpu_torch.ops.cc_kernels import (
         neighbor_min_sweeps, segmented_cc_round,
     )
+    from vtd_tpu_torch.ops.decode_attention import decode_attention
+
+    record_launches(results, "decode_attention", f"launches_{path}",
+                    decode_attention.launches)
 
     calls, cuda = segmented_cc_round.launches, segmented_cc_round.cuda_launches
     record_launches(results, "segmented_cc_round", f"launches_{path}", calls)

@@ -154,3 +154,24 @@ def test_profiler_links_graph_kernels_to_the_caller(card_recognizer):
                 and not ev.name().startswith("probe."))
     assert total > 0
     assert under >= 0.95 * total, (under, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,path", [(16, "graph"), (17, "eager")])
+def test_chunks_count_their_attention_launches(card_recognizer, n, path):
+    """Every decode step runs the attention kernel twice a decoder layer
+    (self- and cross-attention) on both paths; a graph's launches are
+    counted at each replay, not at its capture."""
+    from vtd_tpu_torch.ops.decode_attention import decode_attention
+
+    rec = card_recognizer
+    cfg = rec.cfg
+    x = _images(cfg, n, 61, "cuda")
+    rec.generate(x[:1])  # the graphs are captured by now
+    assert rec._graphed.launches == [2 * cfg.dec_layers] * rec.pad_batch
+    before, chunks = decode_attention.launches, _count(path)
+    rec.generate(x)
+    torch.cuda.synchronize()
+    assert _count(path) - chunks == 1
+    assert decode_attention.launches - before == (
+        2 * cfg.dec_layers * cfg.max_len)

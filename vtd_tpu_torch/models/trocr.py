@@ -14,7 +14,10 @@ Linear of its own (not tied to ``tok_embed``), and a post-norm decoder
 has no ``ln_f``.
 
 Every matrix product here is a plain ``torch.matmul`` / ``F.linear``, as
-the reference leaves them to XLA outside any kernel. The projections and
+the reference leaves them to XLA outside any kernel, but for the decode
+steps' attention over the cached K/V: ``Attention.decode`` calls
+``ops/decode_attention.py``, one hand-written kernel launch on the card
+with the same arithmetic (the plain version on the CPU). The projections and
 the patch embedding cast their weights to ``cfg.dtype`` where they are
 used, as flax casts its float32 parameters to the compute dtype: the
 inference paths build their weights in ``cfg.dtype`` (the casts are
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..obs import trace
+from ..ops.decode_attention import decode_attention
 from .crnn import VOCAB_CHARS
 
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -239,6 +243,16 @@ class Attention(nn.Module):
         out = out.permute(0, 2, 1, 3).reshape(b, t, self.dim)
         return _linear(self.o, out, self.dtype), (k, v)
 
+    def decode(self, xq, kv: KV, pos=None):
+        """One query token xq [B,1,D] over a cached (k, v) [B,T,H,hd]
+        -> [B,1,D]: ``forward``'s arithmetic through ``decode_attention``
+        (one kernel launch on the card), attending positions <= ``pos``
+        (int64 [1] on the device) or, without it, all T."""
+        b = xq.shape[0]
+        q = _linear(self.q, xq, self.dtype).reshape(b, self.dim)
+        out = decode_attention(q, *kv, pos).reshape(b, 1, self.dim)
+        return _linear(self.o, out, self.dtype)
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16,
@@ -324,21 +338,20 @@ class DecoderBlock(nn.Module):
         self.ln3 = LayerNorm32(c.dec_dim, eps=c.dec_ln_eps)
         self.mlp = Mlp(c.dec_dim, c.dec_mlp, c.dtype, c.gelu_exact)
 
-    def _layer(self, x, self_attend, enc_kv: KV):
+    def _layer(self, x, self_attend, cross_attend):
         if self.cfg.post_norm_decoder:
             x = self.ln1(x + self_attend(x))
-            y, _ = self.cross_attn(x, None, kv_cache=enc_kv)
-            x = self.ln2(x + y)
+            x = self.ln2(x + cross_attend(x))
             return self.ln3(x + self.mlp(x))
         x = x + self_attend(self.ln1(x))
-        y, _ = self.cross_attn(self.ln2(x), None, kv_cache=enc_kv)
-        x = x + y
+        x = x + cross_attend(self.ln2(x))
         return x + self.mlp(self.ln3(x))
 
     def forward(self, x, enc_kv: KV, causal_mask):
         """Full-sequence (teacher-forced) forward."""
         return self._layer(
-            x, lambda y: self.self_attn(y, y, mask=causal_mask)[0], enc_kv
+            x, lambda y: self.self_attn(y, y, mask=causal_mask)[0],
+            lambda y: self.cross_attn(y, None, kv_cache=enc_kv)[0],
         )
 
     def step(self, x, self_kv: KV, enc_kv: KV, step_idx: int):
@@ -346,7 +359,8 @@ class DecoderBlock(nn.Module):
         [B,Tmax,H,hd] buffers, written in place at ``step_idx``. Attends
         to positions <= ``step_idx`` (a slice of the buffers: the same
         softmax as the reference's mask over all Tmax positions, whose
-        masked weights are exactly 0)."""
+        masked weights are exactly 0). Both attentions go through
+        ``Attention.decode``."""
         k_cache, v_cache = self_kv
 
         def attend(y):
@@ -354,25 +368,27 @@ class DecoderBlock(nn.Module):
             k_cache[:, step_idx] = k_new[:, 0]
             v_cache[:, step_idx] = v_new[:, 0]
             live = (k_cache[:, :step_idx + 1], v_cache[:, :step_idx + 1])
-            return self.self_attn(y, None, kv_cache=live)[0]
+            return self.self_attn.decode(y, live)
 
-        return self._layer(x, attend, enc_kv), self_kv
+        return self._layer(
+            x, attend, lambda y: self.cross_attn.decode(y, enc_kv)), self_kv
 
-    def step_at(self, x, self_kv: KV, enc_kv: KV, pos, live):
+    def step_at(self, x, self_kv: KV, enc_kv: KV, pos):
         """``step`` at a position held on the device (``pos`` int64 [1]),
         so every step is the same graph: the new K/V are written with
-        ``index_copy_`` and the whole [B,Tmax,H,hd] cache is attended
-        under ``live`` [Tmax] (True at positions <= ``pos``), the
-        reference's own formulation, whose masked weights are exactly 0."""
+        ``index_copy_`` and the whole [B,Tmax,H,hd] cache is attended at
+        positions <= ``pos`` (the reference's mask, whose masked weights
+        are exactly 0)."""
         k_cache, v_cache = self_kv
 
         def attend(y):
             k_new, v_new = self.self_attn.project_kv(y)
             k_cache.index_copy_(1, pos, k_new)
             v_cache.index_copy_(1, pos, v_new)
-            return self.self_attn(y, None, mask=live, kv_cache=self_kv)[0]
+            return self.self_attn.decode(y, self_kv, pos)
 
-        return self._layer(x, attend, enc_kv)
+        return self._layer(
+            x, attend, lambda y: self.cross_attn.decode(y, enc_kv))
 
 
 class TrOCRDecoder(nn.Module):
@@ -447,9 +463,8 @@ class TrOCRDecoder(nn.Module):
         x = self._embed_at(
             token[:, None], self.pos_embed.index_select(1, pos + c.pos_offset)
         )
-        live = torch.arange(c.max_len, device=pos.device) <= pos
         for blk, ekv, kv in zip(self.blocks, enc_kvs, caches):
-            x = blk.step_at(x, kv, ekv, pos, live)
+            x = blk.step_at(x, kv, ekv, pos)
         return self._head(x)[:, 0]
 
 

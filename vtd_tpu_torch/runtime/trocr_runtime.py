@@ -49,6 +49,7 @@ from ..models.trocr import (
 )
 from ..obs import metrics as _metrics
 from ..obs import trace
+from ..ops import decode_attention as attention
 from ..parallel.tensor_parallel import MIN_SIZE, n_split, tensor_parallel_
 from ..train.checkpoint import load_weights
 
@@ -64,7 +65,12 @@ class GraphedDecode:
     captured on the ``[:b]`` views of those buffers; the graphs share one
     memory pool (no tensor allocated in a capture outlives it). All are
     captured when the object is made. The caller serialises ``decode``
-    (the buffers are one)."""
+    (the buffers are one).
+
+    ``launches[b - 1]`` is the number of ``decode_attention`` kernels one
+    step of b rows runs (2 per decoder layer): a capture records them
+    without running them, so ``decode_attention.launches`` is given them
+    back at each replay instead."""
 
     def __init__(self, model: TrOCR, pad_batch: int, bos_id: int,
                  eos_id: int):
@@ -75,6 +81,7 @@ class GraphedDecode:
         self.views = [self.state.rows(b) for b in range(1, pad_batch + 1)]
         # orders a chunk after the last one where callers' streams differ
         self._last = torch.cuda.Event()
+        self.launches: List[int] = []
         self.graphs = self._capture()
 
     def _capture(self):
@@ -92,6 +99,7 @@ class GraphedDecode:
                     greedy_step_(self.model, view, self.eos_id)
                 for view in self.views:
                     g = torch.cuda.CUDAGraph()
+                    before = attention.launches_in_thread()
                     # other threads keep launching eager work meanwhile
                     g.capture_begin(pool=pool,
                                     capture_error_mode="thread_local")
@@ -99,6 +107,9 @@ class GraphedDecode:
                         greedy_step_(self.model, view, self.eos_id)
                     finally:
                         g.capture_end()
+                    n = attention.launches_in_thread() - before
+                    attention.count_launches(-n)  # recorded, not run
+                    self.launches.append(n)
                     pool = g.pool()
                     graphs.append(g)
             cur.wait_stream(side)
@@ -121,9 +132,22 @@ class GraphedDecode:
             with trace.span("vtd.trocr_step", b), \
                     _RecordFunctionFast("vtd.trocr_graph_replay"):
                 graph.replay()
+        attention.count_launches(self.launches[b - 1] * self.model.cfg.max_len)
         out = view.toks.clone(), view.confidences()
         self._last.record(cur)
         return out
+
+
+def _build_kernels() -> None:
+    """Compile the card's kernels (``nvcc``, at a checkout's first use)
+    while the recognizer makes its weights on the CPU. A failure is logged
+    here and raised again by the first launch that needs the kernel."""
+    from .._build import build_all
+
+    try:
+        build_all()
+    except RuntimeError:
+        logger.exception("building the CUDA kernels ahead of use failed")
 
 
 class TransformerRecognizer:
@@ -146,6 +170,9 @@ class TransformerRecognizer:
                 config = dataclasses.replace(config, dtype=torch.float32)
         self.cfg = config
         self.pad_batch = pad_batch
+        if self.device.type == "cuda":  # the decode step's kernel among them
+            threading.Thread(target=_build_kernels, name="vtd-nvcc",
+                             daemon=True).start()
         model = TrOCR(self.cfg)
         if model_path:
             model.load_state_dict(self._load(model_path))
