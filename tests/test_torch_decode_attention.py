@@ -1,7 +1,7 @@
 """``ops/decode_attention.py``: one query token's attention over a cached
 K/V, the TrOCR decoder's step. On the CPU the op is the plain version,
 held bit for bit against ``Attention.forward``'s arithmetic, and the
-decode loops built on it against the same loops through
+decode loop built on it against the same loop through
 ``Attention.forward``. On the card the kernel is held against the plain
 version at the main path's shapes. This file imports no JAX, so the
 card's machine runs it: ``python3 -m pytest --noconftest -m cuda
@@ -55,24 +55,11 @@ def _old_decode(self, xq, kv, pos=None):
     return self(xq, None, mask=mask, kv_cache=kv)[0]
 
 
-def _decode_both_loops(model, images):
-    """(tokens, confidences) of ``greedy_decode`` (``step``) and of the
-    static step loop (``DecodeState`` + ``greedy_step_``, ``step_at``)."""
-    cfg = model.cfg
-    with torch.inference_mode():
-        enc_kvs = model.encode_kv(images)
-        eager = trocr.greedy_decode(model, enc_kvs)
-        state = trocr.DecodeState(cfg, len(images))
-        state.start(enc_kvs)
-        for _ in range(cfg.max_len):
-            trocr.greedy_step_(model, state)
-        return eager, (state.toks.clone(), state.confidences())
-
-
 @pytest.mark.parametrize("kind", ["pre_norm_float32", "post_norm_bfloat16"])
 def test_decode_loops_keep_todays_tokens(kind, monkeypatch):
-    """``step``, ``step_at`` and ``greedy_decode`` through the op give the
-    tokens and confidences they gave through ``Attention.forward``."""
+    """The one decode loop (``greedy_generate``: ``greedy_step_`` over
+    ``step_at``) through the op gives the tokens and confidences it gave
+    through ``Attention.forward``."""
     kw = ({} if kind == "pre_norm_float32" else
           dict(post_norm_decoder=True, layernorm_embedding=True,
                pos_offset=2, dtype=torch.bfloat16))
@@ -80,11 +67,10 @@ def test_decode_loops_keep_todays_tokens(kind, monkeypatch):
     gen = torch.Generator().manual_seed(5)
     model = trocr.init_weights_(trocr.TrOCR(cfg), gen).eval()
     images = torch.rand((3, cfg.image_size, cfg.width, 3), generator=gen)
-    new = _decode_both_loops(model, images * 2 - 1)
+    new_t, new_c = trocr.greedy_generate(model, images * 2 - 1)
     monkeypatch.setattr(trocr.Attention, "decode", _old_decode)
-    old = _decode_both_loops(model, images * 2 - 1)
-    for (nt, nc), (ot, oc) in zip(new, old):
-        assert torch.equal(nt, ot) and torch.equal(nc, oc)
+    old_t, old_c = trocr.greedy_generate(model, images * 2 - 1)
+    assert torch.equal(new_t, old_t) and torch.equal(new_c, old_c)
 
 
 def test_cpu_calls_launch_nothing():
@@ -190,8 +176,8 @@ def test_kernel_cross_attention_bf16(card, rows):
 @pytest.mark.parametrize("view", ["masked", "slice"])
 def test_kernel_self_attention_bf16(card, pos, view):
     """The 50-slot self-attention cache: masked at a device-held ``pos``
-    (``step_at``, the graphs) or sliced to ``pos + 1`` positions
-    (``step``, the eager loop), 16 rows."""
+    (``step_at``) or sliced to ``pos + 1`` positions (a shorter T), 16
+    rows."""
     q, k, v = _kv(16, 50, 16, 64, torch.bfloat16, seed=pos, device=card)
     if view == "masked":
         _check_kernel(q, k, v, torch.tensor([pos], device=card))
@@ -202,8 +188,8 @@ def test_kernel_self_attention_bf16(card, pos, view):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 16])
 def test_kernel_slice_sums_as_the_mask(card, rows):
-    """The eager loop's [:, :s+1] slices of the 50-slot cache give the
-    graphs' masked result at every step, bit for bit."""
+    """[:, :s+1] slices of the 50-slot cache give ``step_at``'s masked
+    result at every step, bit for bit."""
     q, k, v = _kv(rows, 50, 16, 64, torch.bfloat16, seed=80 + rows,
                   device=card)
     for s in range(50):

@@ -1,8 +1,8 @@
-"""``TransformerRecognizer.generate``'s two decode paths: the greedy step
-replayed as CUDA graphs (``runtime/trocr_runtime.py:GraphedDecode``) on
-the card, the eager step loop elsewhere. The card's tests compare the
-graphs with the eager ``greedy_generate`` on the same model; the graphed
-step's arithmetic is held against ``vtd_tpu`` on the CPU in
+"""``TransformerRecognizer.generate``'s two decode paths: the one greedy
+step replayed as CUDA graphs (``runtime/trocr_runtime.py:GraphedDecode``)
+on the card, called eagerly elsewhere. The card's tests compare the
+graphs with the eager ``greedy_generate`` on the same model; the step's
+arithmetic is held against ``vtd_tpu`` on the CPU in
 ``test_torch_trocr.py``. This file imports no JAX, so the card's
 machine runs it: ``python3 -m pytest --noconftest -m cuda
 tests/test_torch_trocr_graph.py``.

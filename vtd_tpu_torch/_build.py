@@ -6,6 +6,9 @@ after a hash of the source so that an edited kernel never loads a stale
 build. Nothing is compiled at import time: the first wrapper call on a
 CUDA tensor builds what it needs, and ``build_all`` builds every source
 at once (one ``nvcc`` process per file, all started together).
+``kernel`` declares a library's C entry point once and launches it the
+one way every wrapper does: on the tensor's device, on the current
+stream, a non-zero return raised.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -18,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / ".build"
@@ -103,3 +108,31 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name]
     return lib
+
+
+def kernel(name: str, symbol: str, argtypes: list) -> Callable[..., None]:
+    """``symbol`` of ``csrc/<name>.cu`` as ``launch(device_index, *args)``:
+    built, loaded and declared (``argtypes`` and a trailing stream
+    pointer, an int return) at its first call, then called with the
+    device made current only where it is not, and the current stream's
+    raw pointer (a ``torch.cuda.Stream`` object costs several µs of host
+    time a call, as much as a kernel launch). A non-zero return raises
+    ``RuntimeError``, named after ``symbol`` without its ``vtd_``."""
+    what = symbol.removeprefix("vtd_")
+    fn = None
+
+    def launch(device_index: int, *args) -> None:
+        nonlocal fn
+        if fn is None:  # first use: build, load, declare the C signature
+            f = getattr(load(name), symbol)
+            f.argtypes = [*argtypes, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+            fn = f
+        if device_index != torch._C._cuda_getDevice():
+            with torch.cuda.device(device_index):
+                return launch(device_index, *args)
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+    return launch

@@ -355,30 +355,18 @@ class DecoderBlock(nn.Module):
         )
 
     def step(self, x, self_kv: KV, enc_kv: KV, step_idx: int):
-        """One-token decode step. x [B,1,D]; ``self_kv`` (k, v)
-        [B,Tmax,H,hd] buffers, written in place at ``step_idx``. Attends
-        to positions <= ``step_idx`` (a slice of the buffers: the same
-        softmax as the reference's mask over all Tmax positions, whose
-        masked weights are exactly 0). Both attentions go through
-        ``Attention.decode``."""
-        k_cache, v_cache = self_kv
-
-        def attend(y):
-            k_new, v_new = self.self_attn.project_kv(y)
-            k_cache[:, step_idx] = k_new[:, 0]
-            v_cache[:, step_idx] = v_new[:, 0]
-            live = (k_cache[:, :step_idx + 1], v_cache[:, :step_idx + 1])
-            return self.self_attn.decode(y, live)
-
-        return self._layer(
-            x, attend, lambda y: self.cross_attn.decode(y, enc_kv)), self_kv
+        """``step_at`` at a position given on the host, in the
+        reference's call shape: -> (x, self_kv)."""
+        pos = torch.tensor([step_idx], device=x.device)
+        return self.step_at(x, self_kv, enc_kv, pos), self_kv
 
     def step_at(self, x, self_kv: KV, enc_kv: KV, pos):
-        """``step`` at a position held on the device (``pos`` int64 [1]),
-        so every step is the same graph: the new K/V are written with
-        ``index_copy_`` and the whole [B,Tmax,H,hd] cache is attended at
+        """One-token decode step at a position held on the device (``pos``
+        int64 [1]), so every step is the same graph. x [B,1,D];
+        ``self_kv`` (k, v) [B,Tmax,H,hd] buffers, the new K/V written in
+        place with ``index_copy_``; the whole cache is attended at
         positions <= ``pos`` (the reference's mask, whose masked weights
-        are exactly 0)."""
+        are exactly 0). Both attentions go through ``Attention.decode``."""
         k_cache, v_cache = self_kv
 
         def attend(y):
@@ -445,20 +433,17 @@ class TrOCRDecoder(nn.Module):
         return self._head(x)
 
     def step(self, token, enc_kvs: List[KV], caches: List[KV], step_idx: int):
-        """token [B] -> (logits [B,V], caches); the caches are updated in
-        place and returned for the reference's call shape."""
-        c = self.cfg
-        p = step_idx + c.pos_offset
-        x = self._embed_at(token[:, None], self.pos_embed[:, p:p + 1])
-        for blk, ekv, kv in zip(self.blocks, enc_kvs, caches):
-            x, _ = blk.step(x, kv, ekv, step_idx)
-        return self._head(x)[:, 0], caches
+        """``step_at`` at a position given on the host: token [B] ->
+        (logits [B,V], caches), the caches returned for the reference's
+        call shape."""
+        pos = torch.tensor([step_idx], device=token.device)
+        return self.step_at(token, enc_kvs, caches, pos), caches
 
     def step_at(self, token, enc_kvs: List[KV], caches: List[KV], pos):
-        """``step`` at a position held on the device (int64 [1]): the
-        position embedding gathered at ``pos + pos_offset``, every block's
-        ``step_at``. token [B] -> logits [B,V]; the caches are written in
-        place. No host read, no shape that depends on ``pos``."""
+        """One decode step at a position held on the device (int64 [1]):
+        the position embedding gathered at ``pos + pos_offset``, every
+        block's ``step_at``. token [B] -> logits [B,V]; the caches are
+        written in place. No host read, no shape that depends on ``pos``."""
         c = self.cfg
         x = self._embed_at(
             token[:, None], self.pos_embed.index_select(1, pos + c.pos_offset)
@@ -529,75 +514,21 @@ def init_decoder_cache(cfg: TrOCRConfig, batch: int, device=None) -> List[KV]:
     ]
 
 
-@torch.inference_mode()
-def _greedy_pick(logits, done, eos_id: int):
-    """One greedy step's choice from logits [B,V] and ``done`` [B]: (the
-    token, <pad> on finished rows; its probability and 1 to count, 0 on
-    finished rows; ``done`` after it). The step that emits <eos> still
-    counts."""
-    pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
-    token = torch.where(done, 0, nxt.to(torch.int32))
-    return (token, torch.where(done, 0.0, pmax), (~done).to(torch.int32),
-            done | (token == eos_id))
-
-
-def greedy_decode(
-    model: TrOCR, enc_kvs: List[KV], bos_id: int = 1, eos_id: int = 2
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All ``max_len`` greedy decoder steps over per-layer cross-attention
-    K/V (from ``model.encode_kv``) -> (tokens [B, max_len] int32, mean
-    token probability [B]). A Python loop over steps with preallocated
-    K/V caches that never waits for the device. Finished rows emit <pad>
-    and stop accumulating confidence (the step that emits <eos> still
-    counts)."""
-    cfg = model.cfg
-    b, dev = enc_kvs[0][0].shape[0], enc_kvs[0][0].device
-    caches = init_decoder_cache(cfg, b, dev)
-    token = torch.full((b,), bos_id, dtype=torch.int32, device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    psum = torch.zeros(b, dtype=torch.float32, device=dev)
-    pcnt = torch.zeros(b, dtype=torch.int32, device=dev)
-    toks = torch.empty((b, cfg.max_len), dtype=torch.int32, device=dev)
-    for step in range(cfg.max_len):
-        with trace.span("vtd.trocr_step", b):
-            logits, caches = model.decode_step(token, enc_kvs, caches, step)
-            token, p, n, done = _greedy_pick(logits, done, eos_id)
-            psum = psum + p
-            pcnt = pcnt + n
-            toks[:, step] = token
-    return toks, psum / pcnt.clamp(min=1)
-
-
-@torch.inference_mode()
-def greedy_generate(
-    model: TrOCR, images: torch.Tensor, bos_id: int = 1, eos_id: int = 2
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched greedy decode: images [B, H, W, 3] -> (tokens [B, max_len]
-    int32, mean token probability [B]). The encoder and the
-    cross-attention K/V run once, then ``greedy_decode``."""
-    return greedy_decode(model, model.encode_kv(images), bos_id, eos_id)
-
-
 # ---------------------------------------------------------------------------
-# Static-shape greedy decode: every step the same graph
+# Greedy decode: one static-shape step, run eagerly or replayed as a graph
 # ---------------------------------------------------------------------------
 class DecodeState:
-    """Static buffers of one greedy decode of up to ``batch`` rows: the
-    per-layer cross-attention K/V, the self-attention caches, the token,
-    ``done``, the confidence sums and counts, the output tokens and the
-    position (int64 [1]). Every buffer keeps its storage for the life of
-    the state, so a captured step can be replayed over it.
-    ``rows(b)`` views the first ``b`` rows of each (the position is
-    shared), so steps of every row count write the same storage."""
+    """Buffers of one greedy decode of up to ``batch`` rows: the
+    self-attention caches, the token, ``done``, the confidence sums and
+    counts, the output tokens and the position (int64 [1]), and the
+    chunk's cross-attention K/V, attended as ``start`` is given them
+    (nothing is copied). Every buffer keeps its storage for the life of
+    the state, so a captured step can be replayed over it. ``rows(b)``
+    views the first ``b`` rows of each (the position is shared), so
+    steps of every row count write the same storage."""
 
     def __init__(self, cfg: TrOCRConfig, batch: int, device=None):
-        hd = cfg.dec_dim // cfg.dec_heads
-        cross = (batch, cfg.num_patches, cfg.dec_heads, hd)
-        self.enc_kvs = [
-            tuple(torch.zeros(cross, dtype=cfg.dtype, device=device)
-                  for _ in range(2))
-            for _ in range(cfg.dec_layers)
-        ]
+        self.enc_kvs: List[KV] = []
         self.caches = init_decoder_cache(cfg, batch, device)
         self.token = torch.zeros(batch, dtype=torch.int32, device=device)
         self.done = torch.zeros(batch, dtype=torch.bool, device=device)
@@ -609,7 +540,6 @@ class DecodeState:
 
     def rows(self, b: int) -> "DecodeState":
         new = copy.copy(self)
-        new.enc_kvs = [(k[:b], v[:b]) for k, v in self.enc_kvs]
         new.caches = [(k[:b], v[:b]) for k, v in self.caches]
         for name in ("token", "done", "psum", "pcnt", "toks"):
             setattr(new, name, getattr(self, name)[:b])
@@ -617,11 +547,9 @@ class DecodeState:
 
     def start(self, enc_kvs: List[KV], bos_id: int = 1) -> None:
         """A new chunk, on the device: its cross-attention K/V (from
-        ``TrOCR.encode_kv``, the state's row count) copied in, the caches
-        zeroed, every row at <bos>, not done, at position 0."""
-        for (k, v), (ek, ev) in zip(self.enc_kvs, enc_kvs):
-            k.copy_(ek)
-            v.copy_(ev)
+        ``TrOCR.encode_kv``, the state's row count) attended from here on,
+        the caches zeroed, every row at <bos>, not done, at position 0."""
+        self.enc_kvs = enc_kvs
         for k, v in self.caches:
             k.zero_()
             v.zero_()
@@ -638,18 +566,47 @@ class DecodeState:
 
 @torch.inference_mode()
 def greedy_step_(model: TrOCR, state: DecodeState, eos_id: int = 2) -> None:
-    """One step of ``greedy_decode`` on ``state``'s buffers, in place, at
-    the position ``state.pos`` holds, which it advances: the same
-    arithmetic as the loop's body, with the self-attention over the whole
-    masked cache. It allocates nothing that outlives it and reads nothing
-    back, so it can be captured once and replayed ``max_len`` times."""
+    """One greedy decoder step on ``state``'s buffers, in place, at the
+    position ``state.pos`` holds, which it advances. Finished rows emit
+    <pad> and stop accumulating confidence (the step that emits <eos>
+    still counts). It allocates nothing that outlives it and reads
+    nothing back, so it can be captured once and replayed ``max_len``
+    times."""
     logits = model.decoder.step_at(
         state.token, state.enc_kvs, state.caches, state.pos
     )
-    token, p, n, done = _greedy_pick(logits, state.done, eos_id)
+    pmax, nxt = torch.softmax(logits, dim=-1).max(dim=-1)
+    token = torch.where(state.done, 0, nxt.to(torch.int32))
+    state.psum.add_(torch.where(state.done, 0.0, pmax))
+    state.pcnt.add_((~state.done).to(torch.int32))
+    state.done.logical_or_(token == eos_id)
     state.token.copy_(token)
-    state.psum.add_(p)
-    state.pcnt.add_(n)
-    state.done.copy_(done)
     state.toks.index_copy_(1, state.pos, token[:, None])
     state.pos.add_(1)
+
+
+@torch.inference_mode()
+def greedy_decode(
+    model: TrOCR, enc_kvs: List[KV], bos_id: int = 1, eos_id: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All ``max_len`` greedy decoder steps over per-layer cross-attention
+    K/V (from ``model.encode_kv``) -> (tokens [B, max_len] int32, mean
+    token probability [B]): ``greedy_step_`` run eagerly on a
+    ``DecodeState`` of these rows, which never waits for the device."""
+    b, dev = enc_kvs[0][0].shape[0], enc_kvs[0][0].device
+    state = DecodeState(model.cfg, b, dev)
+    state.start(enc_kvs, bos_id)
+    for _ in range(model.cfg.max_len):
+        with trace.span("vtd.trocr_step", b):
+            greedy_step_(model, state, eos_id)
+    return state.toks, state.confidences()
+
+
+@torch.inference_mode()
+def greedy_generate(
+    model: TrOCR, images: torch.Tensor, bos_id: int = 1, eos_id: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched greedy decode: images [B, H, W, 3] -> (tokens [B, max_len]
+    int32, mean token probability [B]). The encoder and the
+    cross-attention K/V run once, then ``greedy_decode``."""
+    return greedy_decode(model, model.encode_kv(images), bos_id, eos_id)

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._build import kernel
 from ._rank import one_or_batch
 
 BIG = 2 ** 30  # label sentinel of the reference
@@ -211,21 +212,11 @@ def segmented_plan(h: int, w: int) -> SegmentedPlan:
     return _plan(int(h), int(w))[0]
 
 
-_round_fn = None
-
-
-def _round_kernel():
-    global _round_fn
-    if _round_fn is None:  # first use: build, load, declare the C signature
-        from .._build import load
-
-        fn = load("segmented_cc").vtd_segmented_cc_round
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-        _round_fn = fn
-    return _round_fn
+_round_launch = kernel(
+    "segmented_cc", "vtd_segmented_cc_round",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.POINTER(ctypes.c_int)],
+)
 
 
 @one_or_batch("H, W", "binary", "labels")
@@ -262,23 +253,14 @@ def segmented_cc_round(
         raise ValueError(f"unsupported device {dev}")
     if not (binary.is_contiguous() and labels.is_contiguous()):
         raise ValueError("segmented_cc_round needs contiguous tensors")
-    fn = _round_kernel()
     # the transposed labels, then (from a 16-byte boundary) the transposed
     # mask, one byte a cell
     n = b * h * w
     scratch = torch.empty(-(-n // 4) * 5, dtype=torch.int32, device=dev)
     out = torch.empty_like(labels)
-    args = (binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), b, h, w, int(bool(diag)), plan)
-    # The raw stream pointer: a torch.cuda.Stream object costs several µs
-    # of host time per call, as much as a kernel launch.
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"segmented_cc_round launch failed: CUDA error {err}")
+    _round_launch(dev.index, binary.data_ptr(), labels.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), b, h, w,
+                  int(bool(diag)), plan)
     with _count_lock:
         segmented_cc_round.launches += 1
         segmented_cc_round.cuda_launches += 4 if diag else 2
@@ -364,21 +346,11 @@ def sweep_plan(h: int, w: int, iters: int) -> SweepPlan:
     return _sweep_plan(int(h), int(w), int(iters))[0]
 
 
-_sweeps_fn = None
-
-
-def _sweeps_kernel():
-    global _sweeps_fn
-    if _sweeps_fn is None:  # first use: build, load, declare the C signature
-        from .._build import load
-
-        fn = load("neighbor_min_sweeps").vtd_neighbor_min_sweeps
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-        _sweeps_fn = fn
-    return _sweeps_fn
+_sweeps_launch = kernel(
+    "neighbor_min_sweeps", "vtd_neighbor_min_sweeps",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.POINTER(ctypes.c_int)],
+)
 
 
 @one_or_batch("H, W", "binary", "labels")
@@ -421,21 +393,11 @@ def neighbor_min_sweeps(
         raise ValueError(f"unsupported device {dev}")
     if not (binary.is_contiguous() and labels.is_contiguous()):
         raise ValueError("neighbor_min_sweeps needs contiguous tensors")
-    fn = _sweeps_kernel()
     out = torch.empty_like(labels)
     spare = torch.empty_like(labels) if plan.launches > 1 else None
-    args = (binary.data_ptr(), labels.data_ptr(), out.data_ptr(),
-            None if spare is None else spare.data_ptr(), b, h, w, cplan)
-    # the raw stream pointer, as segmented_cc_round takes it
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(
-            f"neighbor_min_sweeps launch failed: CUDA error {err}"
-        )
+    _sweeps_launch(dev.index, binary.data_ptr(), labels.data_ptr(),
+                   out.data_ptr(), None if spare is None else spare.data_ptr(),
+                   b, h, w, cplan)
     with _count_lock:
         neighbor_min_sweeps.launches += 1
         neighbor_min_sweeps.cuda_launches += plan.launches

@@ -342,10 +342,8 @@ def db_postprocess(
     ex_aabb = None
     if exact_extents:
         # Exact extents over every boundary pixel at each component's own
-        # angle: one segmented min over the label-sorted cells. Angles
-        # reach each position through a one-hot [n, K] product, in full
-        # float32: with TF32 the cosines would lose the very bits this
-        # pass exists for.
+        # angle: one segmented min over the label-sorted cells. Each
+        # position gathers its run's cosine and sine, exact float32.
         slot_by_start = torch.argsort(starts, dim=1, stable=True)
         sstarts = torch.gather(starts, 1, slot_by_start).contiguous()
         sends = torch.gather(ends, 1, slot_by_start).contiguous()
@@ -361,16 +359,8 @@ def db_postprocess(
             ],
             2,
         )  # [B, K, 2]
-        onehot = (
-            rank[..., None] == torch.arange(k, device=dev)
-        ).to(f32)  # [B, n, K]
-        prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            mapped = torch.bmm(onehot, tab)  # [B, n, 2]
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-        c_p, s_p = mapped[..., 0], mapped[..., 1]
+        mapped = torch.gather(tab, 1, rank[..., None].expand(-1, -1, 2))
+        c_p, s_p = mapped[..., 0], mapped[..., 1]  # [B, n]
 
         cxf = ((cell_sorted % ws) * st).to(f32)
         cyf = ((cell_sorted // ws) * st).to(f32)

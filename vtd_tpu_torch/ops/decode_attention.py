@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from .._build import kernel
+
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_CLUSTER = 8
 # the kernel's block (csrc/decode_attention.cu): 256 threads, 4 loads in
@@ -127,21 +129,12 @@ def cluster_size(rows: int, heads: int, t: int, per_pass: int,
     return c
 
 
-_fn = None
 _sms = {}
-
-
-def _kernel():
-    global _fn
-    if _fn is None:  # first use: build, load, declare the C signature
-        from .._build import load
-
-        fn = load("decode_attention").vtd_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
-            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_launch = kernel(
+    "decode_attention", "vtd_decode_attention",
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
+    + [ctypes.c_float],
+)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,20 +174,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sms is None:
         sms = _sms[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    fn = _kernel()
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if pos is None else pos.data_ptr(), k.stride(0), v.stride(0),
-            b, t, h, hd, _CODES[q.dtype],
+    _launch(dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), None if pos is None else pos.data_ptr(),
+            k.stride(0), v.stride(0), b, t, h, hd, _CODES[q.dtype],
             cluster_size(b, h, t, pass_positions(hd, esize), sms), hd ** -0.5)
-    # the raw stream pointer, as the labelling kernels take it
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")
     _local.n = getattr(_local, "n", 0) + 1
     count_launches(1)
     return out

@@ -15,13 +15,13 @@ Unlike the reference there is no zero padding to ``pad_batch``
 multiples: rows are independent and PyTorch has no compile bucket to
 fill. ``pad_batch`` stays as the pipeline's default chunk size.
 
-On the card, a chunk of 1 to ``pad_batch`` crops decodes through
-:class:`GraphedDecode`: each greedy step is one replay of a CUDA graph
-captured at the recognizer's first ``generate``, so the host no longer
-launches every kernel of every step. The eager step loop
-(``greedy_generate``) stays for the CPU, a model split over a mesh row
-and larger chunks; ``trocr_decode_chunks_total{path}`` counts which
-path each chunk took.
+Every chunk runs one greedy step (``models/trocr.py:greedy_step_``)
+``max_len`` times. On the card, a chunk of 1 to ``pad_batch`` crops
+replays it as a CUDA graph (:class:`GraphedDecode`, captured at the
+recognizer's first ``generate``), so the host no longer launches every
+kernel of every step; the CPU, a model split over a mesh row and larger
+chunks call it eagerly (``greedy_generate``).
+``trocr_decode_chunks_total{path}`` counts which path each chunk took.
 """
 from __future__ import annotations
 
@@ -60,12 +60,13 @@ class GraphedDecode:
     """The greedy decode of an unsplit model on the card, one CUDA graph
     replay a step.
 
-    Static buffers (:class:`DecodeState`) sized ``pad_batch`` rows, and
-    one graph of ``greedy_step_`` per row count 1..``pad_batch``, each
-    captured on the ``[:b]`` views of those buffers; the graphs share one
-    memory pool (no tensor allocated in a capture outlives it). All are
-    captured when the object is made. The caller serialises ``decode``
-    (the buffers are one).
+    Static buffers sized ``pad_batch`` rows (a :class:`DecodeState` and
+    the cross-attention K/V a chunk's are copied into), and one graph of
+    ``greedy_step_`` per row count 1..``pad_batch``, each captured on the
+    ``[:b]`` views of those buffers; the graphs share one memory pool (no
+    tensor allocated in a capture outlives it). All are captured when the
+    object is made. The caller serialises ``decode`` (the buffers are
+    one).
 
     ``launches[b - 1]`` is the number of ``decode_attention`` kernels one
     step of b rows runs (2 per decoder layer): a capture records them
@@ -77,7 +78,15 @@ class GraphedDecode:
         self.model = model
         self.bos_id, self.eos_id = bos_id, eos_id
         self.device = next(model.parameters()).device
-        self.state = DecodeState(model.cfg, pad_batch, self.device)
+        c = model.cfg
+        hd = c.dec_dim // c.dec_heads
+        cross = (pad_batch, c.num_patches, c.dec_heads, hd)
+        self.enc_kvs = [
+            tuple(torch.zeros(cross, dtype=c.dtype, device=self.device)
+                  for _ in range(2))
+            for _ in range(c.dec_layers)
+        ]
+        self.state = DecodeState(c, pad_batch, self.device)
         self.views = [self.state.rows(b) for b in range(1, pad_batch + 1)]
         # orders a chunk after the last one where callers' streams differ
         self._last = torch.cuda.Event()
@@ -94,8 +103,9 @@ class GraphedDecode:
             with torch.cuda.stream(side):
                 # eager steps first: cuBLAS handles and workspaces, lazily
                 # loaded kernels, every shape once outside a capture
-                for view in self.views:
-                    view.pos.zero_()
+                for b, view in enumerate(self.views, 1):
+                    view.start([(k[:b], v[:b]) for k, v in self.enc_kvs],
+                               self.bos_id)
                     greedy_step_(self.model, view, self.eos_id)
                 for view in self.views:
                     g = torch.cuda.CUDAGraph()
@@ -124,7 +134,10 @@ class GraphedDecode:
         view, graph = self.views[b - 1], self.graphs[b - 1]
         cur = torch.cuda.current_stream(self.device)
         cur.wait_event(self._last)
-        view.start(enc_kvs, self.bos_id)
+        for (k, v), (ek, ev) in zip(view.enc_kvs, enc_kvs):  # what b reads
+            k.copy_(ek)
+            v.copy_(ev)
+        view.start(view.enc_kvs, self.bos_id)
         for _ in range(self.model.cfg.max_len):
             # an op-scoped record, as an aten op has, so that a profiler
             # links the graph's kernels to this call and to the ranges
